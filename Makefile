@@ -9,10 +9,10 @@ native:
 	sh chiaroscuro_tpu/native/build.sh
 
 test:
-	python -m pytest tests/ -q
+	JAX_PLATFORMS=cpu python -m pytest tests/ -q
 
 test-fast:
-	python -m pytest tests/ -q -x -m "not slow"
+	JAX_PLATFORMS=cpu python -m pytest tests/ -q -x -m "not slow"
 
 bench:
 	python bench.py

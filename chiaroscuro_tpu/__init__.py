@@ -1,10 +1,11 @@
-"""chiaroscuro_tpu — a TPU-native differentiable Monte-Carlo path tracer.
+"""chiaroscuro_tpu — a differentiable Monte-Carlo path tracer in JAX.
 
 A from-scratch JAX/XLA/Pallas framework with the capabilities of the reference
 CPU path tracer (Domingo1337/Chiaroscuro-RayTracer): .rtc scene configs, OBJ/MTL
 ingest, kd-tree/BVH-accelerated ray casting, next-event estimation, cosine-weighted
 diffuse BRDF sampling with Russian-roulette termination, progressive accumulation,
-exrdisplay-style tone mapping, and EXR/HDR/PNG export — re-designed TPU-first:
+exrdisplay-style tone mapping, and EXR/HDR/PNG export — re-designed for an
+accelerator:
 
 - wavefront path tracing (``lax.scan`` over bounce depth, active-ray masks)
   instead of per-pixel recursion (reference ``src/rayTracer.cpp:76-135``)
@@ -15,15 +16,16 @@ exrdisplay-style tone mapping, and EXR/HDR/PNG export — re-designed TPU-first:
   mutable RNG streams)
 - screen-tile sharding over a ``jax.sharding.Mesh`` via ``shard_map`` instead of
   ``#pragma omp parallel for`` over rows (reference ``src/rayTracer.cpp:55``)
-- Pallas kernels for the hot ray-triangle intersection loops instead of
-  recursive C++ kd-tree traversal (reference ``src/kdtree.cpp:210-344``)
+- a Pallas (Triton) kernel for the hot ray-triangle intersection loop
+  instead of recursive C++ kd-tree traversal (reference
+  ``src/kdtree.cpp:210-344``)
 
 Package layout:
   scene/     .rtc config, OBJ/MTL/texture ingest, SceneArrays pytree   (ref L0/L1)
   sampling/  counter-based PRNG streams + importance samplers          (ref C12/C6)
   geometry/  camera ray generation, Moller-Trumbore intersection        (ref C5/C7)
   accel/     BVH build (host) + traversal (device)                      (ref C5)
-  ops/       Pallas TPU kernels for intersection                        (ref C5 hot loops)
+  ops/       Pallas GPU kernel for intersection                         (ref C5 hot loops)
   render/    wavefront integrator, tone map, image I/O, renderer API    (ref C7)
   parallel/  device-mesh sharding, multi-host collectives               (ref OpenMP row loop)
   utils/     timing, checkpointing of accumulation state

@@ -1,6 +1,6 @@
 """Flattened BVH: host-side SAH build + stackless threaded traversal.
 
-TPU-native replacement for the reference's recursive kd-tree
+Array-program replacement for the reference's recursive kd-tree
 (``src/kdtree.cpp:110-344``).  Design rationale:
 
 - **Build on host, once, at scene-load time** (numpy) — the reference builds

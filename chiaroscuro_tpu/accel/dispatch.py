@@ -1,18 +1,19 @@
-"""Intersector selection: brute-force oracle vs BVH-accelerated traversal.
+"""Intersector selection: brute-force oracle, BVH walk or cluster kernel.
 
 The integrator (``render/integrator.py``) is agnostic to how rays are
 intersected; this module picks the backend:
 
-- ``"brute"``  — masked all-pairs Moller-Trumbore (exact oracle; fine for
-  small scenes and the correctness reference for everything else);
-- ``"bvh"``    — flattened BVH traversal (``accel/bvh.py``), the structural
-  analog of the reference's kd-tree (``src/kdtree.cpp``) — lock-step
-  ``while_loop`` gathers, best on CPU backends;
-- ``"pallas"`` — dense VMEM-resident Pallas sweep (small scenes on TPU);
-- ``"cluster"``— two-level meshlet cull + sparse Pallas visit
-  (``ops/cluster_pallas.py``) — the TPU path for large scenes (measured
-  v5e, nanosuit 19k tris: ~2000x over the lock-step BVH walk);
-- ``"auto"``   — picks per backend and scene size.
+- ``"brute"``  — masked all-pairs Moller-Trumbore in XLA (exact oracle;
+  the small-scene path off the GPU and the correctness reference for
+  everything else);
+- ``"bvh"``    — flattened BVH walked in lock step by the whole wavefront
+  (``accel/bvh.py``), the structural analog of the reference's kd-tree
+  (``src/kdtree.cpp``) — the large-scene path off the GPU;
+- ``"cluster"``— XLA meshlet cull + Triton visit kernel
+  (``ops/cluster_pallas.py``) — the large-scene path on the GPU;
+- ``"dense"``  — the same kernel without the cull, every ray row visiting
+  every cluster — the small-scene path on the GPU;
+- ``"auto"``   — picks by platform and scene size (:func:`resolve_auto`).
 """
 
 from __future__ import annotations
@@ -29,39 +30,39 @@ from chiaroscuro_tpu.geometry.intersect import (
 )
 from chiaroscuro_tpu.scene.scene_arrays import SceneArrays
 
-# Below this triangle count the brute-force sweep tends to win on TPU
-# (no gather latency, perfectly dense VPU work).
+# Off the GPU: above this triangle count the BVH walk beats the XLA
+# brute-force sweep.
 AUTO_BVH_THRESHOLD = 4096
 
-# The cluster path packs triangle ids into float32 mantissas and caps at
+# The cluster path stores triangle ids as exact float32 values and caps at
 # 2^24 tris (ops/cluster_pallas.py ID_SENTINEL); beyond that auto degrades
-# to the lock-step BVH walk — measured ~2000x slower on TPU (module
-# docstring) — rather than raise, and warns loudly about it.
+# to the lock-step BVH walk rather than raise, and warns loudly about it.
 CLUSTER_MAX_TRIS = 2**24
 
 
-def resolve_auto(n_tris: int, on_tpu: bool) -> str:
-    """The ``"auto"`` backend decision, factored out for unit testing
-    (VERDICT r4 weak #9: the >2^24 degradation was silent and untested)."""
-    if n_tris > AUTO_BVH_THRESHOLD:
-        # Large scenes: cluster-culled Pallas on TPU, threaded BVH on CPU.
-        if on_tpu and n_tris < CLUSTER_MAX_TRIS:
-            return "cluster"
-        if on_tpu:
-            warnings.warn(
-                f"scene has {n_tris} triangles >= 2^24: the cluster "
-                "intersector's float32-mantissa triangle ids cannot "
-                "represent it, degrading to the lock-step BVH walk "
-                "(measured ~2000x slower on TPU). Split the scene or "
-                "reduce triangle count.",
-                RuntimeWarning, stacklevel=3,
-            )
-        return "bvh"
-    if on_tpu:
-        # Dense VMEM-resident sweep beats XLA's HBM-bound formulation
-        # on-chip for small scenes (no cull pass to amortize).
-        return "pallas"
-    return "brute"
+def resolve_auto(n_tris: int, platform: str) -> str:
+    """The ``"auto"`` backend decision for a scene of ``n_tris`` triangles
+    on a JAX platform (``"gpu"``, ``"cpu"``, ...).
+
+    On the GPU the visit kernel beat the XLA paths at every size measured
+    (H100; CHANGES.md, PR 1): a scene that fits one cluster has nothing to
+    cull and takes the dense sweep, a larger one the culled kernel."""
+    if platform != "gpu":
+        return "brute" if n_tris <= AUTO_BVH_THRESHOLD else "bvh"
+    from chiaroscuro_tpu.ops.cluster_pallas import cluster_size
+
+    if n_tris <= cluster_size(n_tris):
+        return "dense"
+    if n_tris < CLUSTER_MAX_TRIS:
+        return "cluster"
+    warnings.warn(
+        f"scene has {n_tris} triangles >= 2^24: the cluster intersector's "
+        "float32 triangle ids cannot represent it, degrading to the "
+        "lock-step BVH walk, which is far slower on the GPU. Split the "
+        "scene or reduce triangle count.",
+        RuntimeWarning, stacklevel=3,
+    )
+    return "bvh"
 
 
 def make_intersectors(
@@ -70,7 +71,7 @@ def make_intersectors(
     if method == "auto":
         import jax
 
-        method = resolve_auto(scene.n_tris, jax.default_backend() == "tpu")
+        method = resolve_auto(scene.n_tris, jax.default_backend())
 
     if method == "brute":
         from chiaroscuro_tpu.utils.hostconst import host_const
@@ -100,14 +101,9 @@ def make_intersectors(
         bvh = build_bvh(scene)
         return make_bvh_intersectors(scene, bvh)
 
-    if method == "pallas":
-        from chiaroscuro_tpu.ops.intersect_pallas import make_pallas_intersectors
-
-        return make_pallas_intersectors(scene)
-
-    if method == "cluster":
+    if method in ("cluster", "dense"):
         from chiaroscuro_tpu.ops.cluster_pallas import make_cluster_intersectors
 
-        return make_cluster_intersectors(scene)
+        return make_cluster_intersectors(scene, cull=method == "cluster")
 
     raise ValueError(f"unknown intersector method: {method!r}")

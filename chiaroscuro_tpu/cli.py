@@ -21,6 +21,9 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         import jax
 
         jax.config.update("jax_platforms", cfg.platform)
+    from chiaroscuro_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     from chiaroscuro_tpu.render.renderer import Renderer
     from chiaroscuro_tpu.scene.scene_arrays import load_scene

@@ -12,7 +12,7 @@ its epsilon and acceptance conditions:
 
 Triangles are streamed in fixed-size chunks with ``lax.scan`` so peak memory
 is O(rays * chunk) rather than O(rays * tris); XLA fuses the per-chunk
-elementwise work (all VPU) and keeps the running best in registers.
+elementwise work and keeps the running best in registers.
 """
 
 from __future__ import annotations
@@ -31,12 +31,11 @@ class ClosestHit(NamedTuple):
     """Result of a closest-hit query over a ray wavefront.
 
     ``attrs`` optionally carries per-hit shading attributes fetched *by the
-    intersector itself* — the Pallas kernel materializes them with a one-hot
-    (ray x tri_chunk) @ (tri_chunk x n_attrs) matmul on the MXU, which on TPU
-    is far cheaper than XLA row-gathers of tiny (3,) rows from HBM.  ``None``
-    means the integrator gathers from SceneArrays by ``tid`` instead.
-    Layout when present: dict of arrays, keys 'v0','e1','e2','normal','kd',
-    'ke','uv','btype','texid' (see ops/intersect_pallas.ATTR_LAYOUT).
+    intersector itself* — the cluster kernel's caller gathers one packed
+    attribute row per hit.  ``None`` means the integrator gathers from
+    SceneArrays by ``tid`` instead.  Layout when present: dict of arrays,
+    keys 'v0','e1','e2','normal','kd','ke','uv0'..'uv2','btype','texid',
+    'ks','ns','texid_ks' (see ops/cluster_pallas.ATTR_LAYOUT).
     """
 
     hit: jax.Array   # (R,) bool

@@ -1,11 +1,10 @@
 """Planar vec3 math: vectors-of-structures -> structure-of-vectors.
 
-TPU vector tiles are (8 sublanes x 128 lanes); an elementwise op on an
-``(R, 3)`` array uses 3 of 128 lanes (~2%), and on a ``(1, R)`` slice uses
-1 of 8 sublanes (~12%).  Profiling the integrator showed ~80% of device time
-in exactly such ops.  The fix: keep every hot per-ray quantity **2-D over
-the ray axis** — scalars as ``(R/128, 128)``, vec3 as ``(3, R/128, 128)`` —
-so every (8, 128) tile is fully utilized.
+An elementwise op on an ``(R, 3)`` array works on interleaved components
+(stride-3 access, a relayout at every boundary).  Every hot per-ray
+quantity is instead kept **2-D over the ray axis** — scalars as
+``(R/128, 128)``, vec3 as ``(3, R/128, 128)`` — so each component is one
+contiguous array and the intersector boundary needs no transpose.
 
 Convention: ``p`` is a planar vec3 iff ``p.shape == (3, *B)`` for any batch
 shape ``B``; per-ray scalars have shape ``B``.  All helpers are

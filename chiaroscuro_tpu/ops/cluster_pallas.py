@@ -1,55 +1,48 @@
-"""Two-level cluster (meshlet) intersector: dense cull + sparse Pallas visit.
+"""Cluster (meshlet) intersector: XLA cull + per-row Triton visit kernel.
 
-TPU-native replacement for per-ray kd-tree traversal on *large* scenes
-(``src/kdtree.cpp:248-344``).  See ``accel/clusters.py`` for the design
-rationale; the division of labor is:
+GPU replacement for per-ray kd-tree traversal on *large* scenes
+(``src/kdtree.cpp:248-344``).  See ``accel/clusters.py`` for the meshlet
+build; the division of labor is:
 
 - **XLA cull pass** (:func:`_cull_rows`): exact per-lane AABB slab tests of
-  all K cluster boxes — dense elementwise VPU work, K-chunked so temporaries
-  stay cache-sized — reduced to a per-row *compacted cluster id list* (ids
-  of boxes any lane of the 128-ray row hits, ascending, via stable top_k)
-  plus a trip count.  Rows that hit more than ``Lmax`` clusters keep their
-  ``Lmax`` *nearest* boxes plus a ``cutoff`` (entry bound of the first
-  excluded box); the kernel visits the prefix near-to-far and runs a
-  residual full-K sweep only while some lane's result could still be
-  beaten past the cutoff (:func:`_order_hits`), so the result is always
-  exact and overflow rows early-exit like everyone else.
-- **Pallas kernel**: grid over 8-row tiles; each row runs a dynamic-trip
-  ``fori_loop`` whose body is the same (M x 128) Moller-Trumbore block as
-  the dense kernel (``ops/intersect_pallas.py``), with per-hit shading
-  attributes fetched in-kernel by a one-hot (M x ATTR_K)^T @ (M x 128)
-  matmul on the MXU.  Ids stream through SMEM.
+  all K cluster boxes, K-chunked so temporaries stay cache-sized, reduced
+  to a per-row *candidate list* (ids of the boxes any ray of the row hits,
+  ordered near-to-far) plus a trip count.  Rows that hit more than ``Le``
+  boxes keep their ``Le`` nearest plus a ``cutoff`` (entry bound of the
+  first excluded box); the kernel visits the prefix near-to-far and runs a
+  residual full-K sweep only while some ray's result could still be beaten
+  past the cutoff (:func:`_order_hits`), so the result is always exact.
+- **Visit kernel** (Pallas, ``backend="triton"``): one program per row of
+  ``ray_block`` rays.  The program loads its own list slice and walks it
+  with a dynamic-trip loop that stops as soon as every ray's best ``t``
+  undercuts the next box's entry distance.  Each visited cluster's
+  triangles are loaded from global memory at a dynamic offset and tested
+  a few at a time, as a (ray_block, SUB) register tile.
 
-Cluster data lives in one **packed field-major matrix** (K*PACK_W, M):
-each cluster owns a (PACK_W=48, M) block whose *rows* are fields — [0:9] =
-v0|e1|e2 components, [9] = original triangle id as an exact float (which
-limits scenes to 2^24 triangles), [16:48] = the shading-attribute matrix —
-and whose *lanes* are the cluster's M triangle slots.  Field-major matters
-on TPU: with M=128 the minor dim is exactly lane-width, so the matrix is
-**dense** (a triangle-major (K*M, 48) layout gets physically padded to 128
-lanes = 2.67x the memory and DMA bytes) and HBM DMA slices are lane-aligned
-as Mosaic requires.  In-kernel, each visit transposes only the 16
-geometry/id rows to triangle-major columns for the Moller-Trumbore
-broadcast; the attribute rows are already the (ATTR_K, M) left operand of
-the one-hot MXU fetch.  Two kernel variants consume the matrix:
+The kernel returns ``(t, tid, u, v)`` only.  Shading attributes are one
+XLA gather by ``tid`` afterwards, so no matrix product (and no TF32
+rounding) touches fetched values.
 
-- *resident*: it sits whole in VMEM — fastest; dense packing fits ~375k
-  triangle-slots in the 72 MB residency budget;
-- *streaming*: it stays in HBM (``pl.ANY``) and each visited cluster's
-  (48, M) block is DMA'd into a double-buffered VMEM scratch, prefetching
-  block j+1 while block j computes — unbounded scene size, bandwidth-bound
-  only on the clusters actually visited.
+Cluster geometry lives in one **field-major matrix** ``geo`` of shape
+(GEO_W, K*M): rows are v0|e1|e2 components and the original triangle id as
+an exact float (which limits scenes to 2^24 triangles); columns are the
+K clusters' M triangle slots.  A tile of a cluster is then GEO_W
+contiguous loads of SUB floats.
 
 Exactness vs the brute-force oracle (``geometry/intersect.py``): identical
 epsilon and acceptance conditions; ties in t are broken to the lowest
-*original* triangle id both within a cluster (lexicographic (t, id) argmin)
-and across clusters, so results match the oracle regardless of cluster
-visit order.  Padded slots are degenerate (det == 0) and never hit.
+*original* triangle id both within a cluster and across clusters, so
+results match the oracle regardless of visit order.  Padded slots are
+degenerate (det == 0) and never hit.
 
-Differentiability: like the dense kernel, a custom VJP recomputes the
-continuous outputs (t, u, v, attributes) for the winning triangle id from
-the *original-order* arrays — the cull and the argmin are discrete and
-correctly excluded from differentiation.
+Differentiability: a custom VJP recomputes the continuous outputs
+(t, u, v) for the winning triangle id from the *original-order* arrays —
+the cull and the argmin are discrete and correctly excluded from
+differentiation.  The attribute gather is plain JAX and differentiates
+as a gather.
+
+Without ``cull`` every row visits all K clusters in order, which turns the
+same kernel into a dense sweep for small scenes.
 """
 
 from __future__ import annotations
@@ -61,42 +54,178 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plt
 
 from chiaroscuro_tpu.accel.clusters import ClusterArrays, build_clusters
 from chiaroscuro_tpu.geometry.intersect import AnyFn, ClosestFn, ClosestHit
-from chiaroscuro_tpu.ops.intersect_pallas import (
-    ATTR_K,
-    BIG,
-    _mt_core,
-    _pad_planar_rows,
-    _prep_attrs,
-    _rows_to_planar,
-    unpack_attrs_planar,
-)
 from chiaroscuro_tpu.scene.scene_arrays import SceneArrays
 
-# Packed field-major layout: (PACK_W, M) block per cluster.
-PACK_W = 48              # field rows (f32): 9 tri + 1 id + pad + 32 attrs
-PACK_ATTR0 = 16          # attrs occupy [PACK_ATTR0 : PACK_ATTR0 + ATTR_K]
+FLT_EPS = np.float32(np.finfo(np.float32).eps)
+BIG = np.float32(3.0e38)
 ID_SENTINEL = np.float32(1 << 24)   # > any real id; ids exact in f32 below it
+
+# Field-major geometry rows: v0 (3) | e1 (3) | e2 (3) | original id (1).
+GEO_W = 10
+
+# Kernel shape, chosen on the H100 (CHANGES.md, PR 1): rays per program
+# and per cull row, triangles per register tile, warps per program.
+RAY_BLOCK = 32
+SUB = 8
+NUM_WARPS = 2
+NUM_STAGES = 2
+
+# Triangles per cluster, by scene size: up to SMALL_SCENE_TRIS triangles
+# the cull (K boxes x rays) is cheap and small clusters keep each row's
+# candidate list short; above it the cull's cost grows with K and larger
+# clusters win.
+SMALL_SCENE_TRIS = 1 << 16
+SMALL_M, LARGE_M = 64, 128
+
+# Candidate-list width.  A wide list is nearly free (the near-ordered walk
+# exits early); a narrow one sends rows to the phase-2 residual sweep.
+LMAX = 1536
+
+
+def cluster_size(n_tris: int) -> int:
+    """Triangles per cluster for a scene of ``n_tris`` triangles."""
+    return SMALL_M if n_tris <= SMALL_SCENE_TRIS else LARGE_M
 
 # Clamp for 1/dir in the slab test: keeps axis-parallel rays finite (no
 # 0 * inf NaNs) while behaving like +-inf for containment purposes.
 HUGE_INV = np.float32(1.0e30)
-# Mosaic's default scoped-VMEM limit is 16 MB; a v5e core has 128 MB of
-# physical VMEM.  The resident packed matrix legitimately needs more for
-# ~100k-triangle scenes.
-VMEM_LIMIT_BYTES = 110 * 1024 * 1024
-# Above this packed-matrix size, switch to the HBM-streaming kernel.
-RESIDENT_BUDGET_BYTES = 72 * 1024 * 1024
 
-# Minimum cluster count for bounce compaction + spatial ray sorting to be
-# net-positive (see the measured table at the `prefers_compaction`
-# assignment in make_cluster_intersectors).
+# Minimum cluster count for bounce compaction + spatial ray sorting
+# (render/integrator.py) to be turned on for this intersector.
 COMPACT_MIN_K = 1024
 
-TILE_ROWS = 8  # Mosaic block constraint: sublane block dims divisible by 8
+# Shading-attribute rows gathered per hit (integer fields ride as exact
+# small floats).
+ATTR_LAYOUT = {
+    "v0": slice(0, 3),
+    "e1": slice(3, 6),
+    "e2": slice(6, 9),
+    "normal": slice(9, 12),
+    "kd": slice(12, 15),
+    "ke": slice(15, 18),
+    "uv0": slice(18, 20),
+    "uv1": slice(20, 22),
+    "uv2": slice(22, 24),
+    "btype": slice(24, 25),
+    "texid": slice(25, 26),
+    "ks": slice(26, 29),
+    "ns": slice(29, 30),
+    "texid_ks": slice(30, 31),
+}
+ATTR_K = 32                 # 31 fields padded to a 128-byte row
+
+_INT_ATTRS = ("btype", "texid", "texid_ks")
+
+
+# ---------------------------------------------------------------------------
+# Shared helpers
+# ---------------------------------------------------------------------------
+
+
+def _attr_rows(scene, xp=jnp):
+    """(T, ATTR_K) f32 shading-attribute rows, one per triangle.
+
+    ``xp`` selects the array namespace: ``jnp`` when the scene fields are
+    traced (differentiable rendering — gradients flow from the gathered
+    attributes back into kd/ke/vertices); ``np`` for a concrete scene, so
+    the result is a *host* constant (utils/hostconst.py).
+    """
+    T = scene.tri_v0.shape[0]
+    cols = xp.concatenate(
+        [
+            scene.tri_v0,                                   # v0
+            scene.tri_v1 - scene.tri_v0,                    # e1
+            scene.tri_v2 - scene.tri_v0,                    # e2
+            scene.normal,
+            scene.kd,
+            scene.ke,
+            scene.uv0,
+            scene.uv1,
+            scene.uv2,
+            scene.brdf_type[:, None].astype(np.float32),
+            scene.tex_id[:, None].astype(np.float32),
+            scene.ks,
+            scene.shininess[:, None],
+            scene.tex_id_ks[:, None].astype(np.float32),
+        ],
+        axis=1,
+    )                                                       # (T, 31)
+    return xp.concatenate(
+        [cols, xp.zeros((T, ATTR_K - cols.shape[1]), np.float32)], axis=1
+    )
+
+
+def unpack_attrs_planar(mat):
+    """(ATTR_K, B0, 128) gathered attributes -> dict of planar per-field
+    arrays: vec3 as (3, B0, 128), uv pairs as (2, B0, 128), scalars as
+    (B0, 128)."""
+    out = {}
+    for name, sl in ATTR_LAYOUT.items():
+        col = mat[sl]
+        if name in _INT_ATTRS:
+            out[name] = jnp.round(col[0]).astype(jnp.int32)
+        elif name == "ns":
+            out[name] = col[0]
+        else:
+            out[name] = col
+    return out
+
+
+def _mt_core(o, d, v0, e1, e2):
+    """Moller-Trumbore, pure elementwise over broadcastable components.
+
+    o, d: tuples of ray-coordinate arrays; v0/e1/e2: tuples of
+    triangle-coordinate arrays that broadcast against them.  Returns
+    (ok, t, u, v) at the broadcast shape.
+    """
+    ox, oy, oz = o
+    dx, dy, dz = d
+    v0x, v0y, v0z = v0
+    e1x, e1y, e1z = e1
+    e2x, e2y, e2z = e2
+
+    # p = cross(d, e2)
+    px = dy * e2z - dz * e2y
+    py = dz * e2x - dx * e2z
+    pz = dx * e2y - dy * e2x
+    a = e1x * px + e1y * py + e1z * pz
+    nonpar = jnp.abs(a) >= FLT_EPS
+    f = 1.0 / jnp.where(nonpar, a, 1.0)
+
+    sx = ox - v0x
+    sy = oy - v0y
+    sz = oz - v0z
+    u = f * (sx * px + sy * py + sz * pz)
+    # q = cross(s, e1)
+    qx = sy * e1z - sz * e1y
+    qy = sz * e1x - sx * e1z
+    qz = sx * e1y - sy * e1x
+    v = f * (dx * qx + dy * qy + dz * qz)
+    t = f * (e2x * qx + e2y * qy + e2z * qz)
+
+    ok = (
+        nonpar
+        & (u >= 0.0)
+        & (u <= 1.0)
+        & (v >= 0.0)
+        & (u + v <= 1.0)
+        & (t >= 0.0)
+    )
+    return ok, t, u, v
+
+
+def _rows_to_planar(rows):
+    """(R, 3) -> ((3, B0, 128), R) padded to a 128 multiple with replicas
+    of the first row (replicas cannot create degenerate configurations)."""
+    R = rows.shape[0]
+    pad = (-R) % 128
+    if pad:
+        rows = jnp.concatenate([rows, rows[:1].repeat(pad, 0)])
+    return rows.T.reshape(3, -1, 128), R
 
 
 # ---------------------------------------------------------------------------
@@ -117,19 +246,17 @@ def _safe_inv(d3):
     return inv
 
 
-def _rowhit_scan(o3, inv, bmin, bmax, tmax=None, CK=32, with_near=False):
-    """(B0, K) bool: does any lane of ray row b hit box k?
+def _rowhit_scan(o3, inv, bmin, bmax, tmax=None, CK=32):
+    """Per-row box hits and entry bounds, both (NR, K).
 
-    Exact per-lane slab tests, reduced over each row's 128 lanes.  The K
-    axis streams in chunks through a ``lax.scan`` so the (CK, B0, 128) slab
-    temporaries stay cache-sized instead of materializing (K, B0, 128) in
-    HBM.
+    o3/inv: (3, NR, RB) planar rays.  Exact per-ray slab tests, reduced
+    over each row's RB rays.  The K axis streams in chunks through a
+    ``lax.scan`` so the (CK, NR, RB) slab temporaries stay cache-sized.
 
-    ``with_near=True`` additionally returns the per-row *entry distance*
-    bound: min over hitting lanes of max(near, 0) — a valid lower bound on
-    any intersection t inside box k for every lane of the row (each lane's
-    own entry is >= the row min), used to order kernel visits near-to-far
-    and to early-exit once every lane's best t undercuts the next box.
+    The entry bound is min over hitting rays of max(near, 0) — a lower
+    bound on any intersection t inside box k for every ray of the row,
+    used to order visits near-to-far and to exit early once every ray's
+    best t undercuts the next box.
     """
     K = bmin.shape[0]
     Kp = -(-K // CK) * CK
@@ -138,8 +265,8 @@ def _rowhit_scan(o3, inv, bmin, bmax, tmax=None, CK=32, with_near=False):
     # lo=min(t0,t1)/hi=max(t0,t1) undoes the inversion, so padded columns
     # test as the infinite box and DO register hits.  They are harmless only
     # because the result is sliced to [:, :K] below.
-    bmn = jnp.concatenate([bmin, jnp.full((pad, 3), BIG)]) if pad else bmin
-    bmx = jnp.concatenate([bmax, jnp.full((pad, 3), -BIG)]) if pad else bmax
+    bmn = np.concatenate([bmin, np.full((pad, 3), BIG)]) if pad else bmin
+    bmx = np.concatenate([bmax, np.full((pad, 3), -BIG)]) if pad else bmax
 
     def chunk_hit(_, boxes):
         cmn, cmx = boxes                                   # (CK, 3) each
@@ -152,277 +279,98 @@ def _rowhit_scan(o3, inv, bmin, bmax, tmax=None, CK=32, with_near=False):
             hi = jnp.maximum(t0, t1)
             near = lo if near is None else jnp.maximum(near, lo)
             far = hi if far is None else jnp.minimum(far, hi)
-        hit = (far >= near) & (far >= 0.0)                 # (CK, B0, 128)
+        hit = (far >= near) & (far >= 0.0)                 # (CK, NR, RB)
         if tmax is not None:
             hit = hit & (near <= tmax[None])
-        anyhit = jnp.any(hit, axis=2)                      # (CK, B0)
-        if not with_near:
-            return _, anyhit
+        anyhit = jnp.any(hit, axis=2)                      # (CK, NR)
         entry = jnp.min(
             jnp.where(hit, jnp.maximum(near, 0.0), BIG), axis=2
-        )                                                  # (CK, B0)
+        )
         return _, (anyhit, entry)
 
-    _, rh = jax.lax.scan(
-        chunk_hit, 0, (bmn.reshape(-1, CK, 3), bmx.reshape(-1, CK, 3))
+    _, (anyhit, entry) = jax.lax.scan(
+        chunk_hit, 0,
+        (jnp.asarray(bmn, jnp.float32).reshape(-1, CK, 3),
+         jnp.asarray(bmx, jnp.float32).reshape(-1, CK, 3)),
     )
-    if not with_near:
-        return rh.reshape(Kp, -1).T[:, :K]                 # (B0, K)
-    anyhit, entry = rh
     return (
         anyhit.reshape(Kp, -1).T[:, :K],
         entry.reshape(Kp, -1).T[:, :K],
     )
 
 
-def _order_hits(hits, cands, entry, K, Le):
-    """Shared cull epilogue: (B0, C) hit mask + candidate ids + entry
-    distances -> near-ascending (meta, ids, nears, cutoff) lists, width Le.
+def _order_hits(hits, entry, Le):
+    """(NR, K) hit mask + entry distances -> near-ascending
+    (meta, ids, nears, cutoff) lists of width Le.
 
-    Visit order near-to-far is what lets the kernels early-exit once every
-    lane's best t undercuts the next box's entry (the TPU analog of the
-    reference kd-tree's split-plane-ordered descent, src/kdtree.cpp:248-281).
+    Visit order near-to-far is what lets the kernel exit early once every
+    ray's best t undercuts the next box's entry (the analog of the
+    reference kd-tree's split-plane-ordered descent,
+    src/kdtree.cpp:248-281).
 
-    Overflow rows (more than Le hits) get a **two-phase** contract instead
-    of the old full-K unordered sweep: phase 1 visits the Le *nearest*
-    boxes near-to-far (trip = Le), and ``cutoff`` — the entry distance of
-    the first *excluded* box — tells the kernel whether the result is
-    already exact (every lane's best t < cutoff: no excluded box can
-    contain a closer hit, since a box's entry lower-bounds every
-    intersection t inside it) or whether a residual identity-order sweep
-    over all K boxes is needed (kernel phase 2; revisiting listed boxes is
-    idempotent, and the same cutoff condition lets phase 2 exit early —
-    the old overflow path could never exit).  Non-overflow rows carry
+    Overflow rows (more than Le hits) get a **two-phase** contract: phase 1
+    visits the Le *nearest* boxes near-to-far (trip = Le), and ``cutoff``
+    — the entry distance of the first *excluded* box — tells the kernel
+    whether the result is already exact (every ray's best t < cutoff: no
+    excluded box can contain a closer hit, since a box's entry
+    lower-bounds every intersection t inside it) or whether a residual
+    identity-order sweep over all K boxes is needed (kernel phase 2;
+    revisiting listed boxes is idempotent).  Non-overflow rows carry
     cutoff = +inf, which a miss sentinel (BIG) can never reach, so phase 2
     never triggers for them.
     """
-    B0 = hits.shape[0]
+    NR, K = hits.shape
     count = jnp.sum(hits, axis=1).astype(jnp.int32)
     key = jnp.where(hits, entry, BIG)
-    skey, sids = jax.lax.sort(
-        (key, cands.astype(jnp.int32)), num_keys=1, is_stable=True
-    )
+    cands = jnp.broadcast_to(jnp.arange(K, dtype=jnp.int32)[None], (NR, K))
+    skey, sids = jax.lax.sort((key, cands), num_keys=1, is_stable=True)
     overflow = count > Le
     # Entry bound of the nearest box NOT in the list (real whenever
-    # count > Le; BIG otherwise and unused).
-    excl_entry = skey[:, Le] if skey.shape[1] > Le else jnp.full(
-        (B0,), BIG, jnp.float32
-    )
-    if skey.shape[1] < Le:
-        pad = Le - skey.shape[1]
-        skey = jnp.concatenate([skey, jnp.full((B0, pad), BIG)], axis=1)
-        sids = jnp.concatenate(
-            [sids, jnp.zeros((B0, pad), jnp.int32)], axis=1
-        )
-    # Sentinel entries sit beyond trip and are never read by the kernel;
-    # clamp them in-range anyway so a bug can't index out of bounds.
-    ids = jnp.minimum(sids[:, :Le], jnp.int32(K - 1))
+    # count > Le; unused otherwise).
+    excl_entry = skey[:, Le] if K > Le else jnp.full((NR,), BIG, jnp.float32)
     trip = jnp.where(overflow, jnp.int32(Le), count)
     meta = jnp.stack([trip, overflow.astype(jnp.int32)], axis=1)
     cutoff = jnp.where(overflow, excl_entry, jnp.float32(np.inf))
-    return meta, ids, skey[:, :Le], cutoff[:, None]
-
-
-def _rowhit_beam(o3, d3, bmin, bmax, tmax=None):
-    """Conservative per-ROW beam test: (B0, K) hit mask + entry lower
-    bounds from interval arithmetic over each row's origin box and
-    direction bounds — ~128x less arithmetic than the per-lane sweep
-    (no lane axis).
-
-    Soundness: for every lane, its slab near lies in [near_lo, ...] and
-    its far in [..., far_hi] by interval-arithmetic monotonicity, so
-    ``far_hi >= max(near_lo, 0)`` can never be false when some lane hits
-    (superset-of-hits mask), and ``max(near_lo, 0)`` lower-bounds every
-    lane's entry (a valid ordering/cutoff bound).  Axes where the row's
-    direction interval spans 0 constrain nothing and are skipped
-    (conservative).  Useful only when rows are coherent — the integrator's
-    global spatial sort (prefers_ray_sort scenes) is what makes bounce
-    and shadow rows tight; divergent rows degrade to near-full lists,
-    which the near-ordered early-exit kernels then prune.
-    """
-    B0 = o3.shape[1]
-    O_lo = [jnp.min(o3[a], axis=1) for a in range(3)]      # (B0,)
-    O_hi = [jnp.max(o3[a], axis=1) for a in range(3)]
-    D_lo = [jnp.min(d3[a], axis=1) for a in range(3)]
-    D_hi = [jnp.max(d3[a], axis=1) for a in range(3)]
-
-    near_lo = jnp.full((B0, 1), -BIG, jnp.float32)
-    far_hi = jnp.full((B0, 1), BIG, jnp.float32)
-    for a in range(3):
-        pos = D_lo[a] > 0.0
-        neg = D_hi[a] < 0.0
-        definite = pos | neg                               # (B0,)
-        # Safe reciprocals of the direction interval endpoints (only
-        # consumed where `definite`).
-        i_lo = 1.0 / jnp.where(definite, D_lo[a], 1.0)
-        i_hi = 1.0 / jnp.where(definite, D_hi[a], 1.0)
-        # Interval product (p_lo..p_hi) * (q_lo..q_hi) via 4 endpoint
-        # products; p = (plane - O), q = 1/D.
-        q_lo = jnp.minimum(i_lo, i_hi)[:, None]            # (B0, 1)
-        q_hi = jnp.maximum(i_lo, i_hi)[:, None]
-
-        def t_interval(plane):                             # plane: (K,)
-            p_lo = plane[None, :] - O_hi[a][:, None]       # (B0, K)
-            p_hi = plane[None, :] - O_lo[a][:, None]
-            t1 = p_lo * q_lo
-            t2 = p_lo * q_hi
-            t3 = p_hi * q_lo
-            t4 = p_hi * q_hi
-            return (
-                jnp.minimum(jnp.minimum(t1, t2), jnp.minimum(t3, t4)),
-                jnp.maximum(jnp.maximum(t1, t2), jnp.maximum(t3, t4)),
-            )
-
-        tmin_lo, tmin_hi = t_interval(bmin[:, a])
-        tmax_lo2, tmax_hi2 = t_interval(bmax[:, a])
-        # Per-lane near_a = min-plane entry, far_a = max-plane exit (the
-        # per-lane lo/hi swap is absorbed by taking interval min/max of
-        # BOTH planes — conservative for mixed-sign rows too).
-        a_near_lo = jnp.minimum(tmin_lo, tmax_lo2)
-        a_far_hi = jnp.maximum(tmin_hi, tmax_hi2)
-        defc = definite[:, None]
-        near_lo = jnp.maximum(near_lo, jnp.where(defc, a_near_lo, -BIG))
-        far_hi = jnp.minimum(far_hi, jnp.where(defc, a_far_hi, BIG))
-
-    hit = (far_hi >= near_lo) & (far_hi >= 0.0)
-    if tmax is not None:
-        hit = hit & (near_lo <= jnp.max(tmax, axis=1)[:, None])
-    entry = jnp.maximum(near_lo, 0.0)
-    return hit, jnp.where(hit, entry, BIG)
-
-
-def _cull_rows_beam(o3, d3, bmin, bmax, Lmax, tmax=None):
-    """Flat cull with the conservative beam test (see :func:`_rowhit_beam`);
-    same (meta, ids, nears, cutoff) contract as :func:`_cull_rows`."""
-    K = bmin.shape[0]
-    o3 = jax.lax.stop_gradient(o3)
-    d3 = jax.lax.stop_gradient(d3)
-    tmax = None if tmax is None else jax.lax.stop_gradient(tmax)
-    rowhit, entry = _rowhit_beam(
-        o3, d3, jnp.asarray(bmin), jnp.asarray(bmax), tmax
-    )
-    cands = jnp.broadcast_to(
-        jnp.arange(K, dtype=jnp.int32)[None, :], rowhit.shape
-    )
-    return _order_hits(rowhit, cands, entry, K, min(Lmax, K))
+    return meta, sids[:, :Le], skey[:, :Le], cutoff[:, None]
 
 
 def _cull_rows(o3, d3, bmin, bmax, Lmax, tmax=None):
     """Per-row cluster culling (flat: linear sweep over all K boxes).
 
-    o3, d3: (3, B0, 128) planar rays; bmin/bmax: (K, 3) boxes.  Returns
-    (meta (B0, 2) i32 [trip, overflow], ids (B0, Le) i32 near-ascending,
-    nears (B0, Le) f32 entry-distance bounds, cutoff (B0, 1) f32 phase-2
+    o3, d3: (3, NR, RB) planar rays; bmin/bmax: (K, 3) boxes.  Returns
+    (meta (NR, 2) i32 [trip, overflow], ids (NR, Le) i32 near-ascending,
+    nears (NR, Le) f32 entry-distance bounds, cutoff (NR, 1) f32 phase-2
     trigger — see :func:`_order_hits`), Le = min(Lmax, K).
 
-    Per-lane exactness note: a conservative interval-arithmetic variant —
-    bounding each row's origins/directions and testing (B0, K) intervals —
-    is 128x cheaper but was measured 3.7x *slower* end-to-end on nanosuit:
-    one divergent lane widens a bounce row's interval to the whole scene,
-    and bounce rows dominate.  Per-lane exactness is what keeps the per-row
-    lists short.
+    Per-ray exactness matters: a conservative per-row interval variant is
+    far cheaper but one divergent ray widens a bounce row's interval to
+    the whole scene, and the inflated candidate lists cost the visit
+    kernel more than the cull saves.
     """
     K = bmin.shape[0]
     o3 = jax.lax.stop_gradient(o3)
     d3 = jax.lax.stop_gradient(d3)
     tmax = None if tmax is None else jax.lax.stop_gradient(tmax)
-    rowhit, entry = _rowhit_scan(
-        o3, _safe_inv(d3), bmin, bmax, tmax, with_near=True
-    )
-    cands = jnp.broadcast_to(
-        jnp.arange(K, dtype=jnp.int32)[None, :], rowhit.shape
-    )
-    return _order_hits(rowhit, cands, entry, K, min(Lmax, K))
+    rowhit, entry = _rowhit_scan(o3, _safe_inv(d3), bmin, bmax, tmax)
+    return _order_hits(rowhit, entry, min(Lmax, K))
 
 
 # ---------------------------------------------------------------------------
-# Pallas kernels
+# Triton visit kernels
 # ---------------------------------------------------------------------------
 
 
-def _visit_chunk(chunk, o, d, tmax=None, excl=None, T=False):
-    """Core per-cluster computation on a packed (PACK_W, M) block.
-
-    Closest mode (tmax is None): returns (tmin, idsel, cu, cv, cattr) —
-    the lexicographic-(t, original id) best hit of the chunk per lane.
-    Any mode: returns the per-lane blocking mask reduced over the chunk.
-
-    ``T=False`` (default): triangles on sublanes, rays on lanes — the 16
-    geometry/id rows transpose to triangle-major (M, 16) each visit.
-    ``T=True``: **transposed layout** — rays on sublanes ((128, 1) column
-    vectors, transposed once per row outside the trip loop), triangles on
-    lanes (the packed (1, M) field rows used directly, zero per-visit
-    relayout).  Identical scalar operations per (triangle, lane) pair and
-    identical reduction sets, so results are bitwise equal; only vector
-    orientation differs (and the reductions run cross-lane instead of
-    cross-sublane).  Outputs come back in transposed orientation —
-    (128, 1) columns, (128, AK) attrs — and are transposed once per row at
-    store time.
-    """
-    M = chunk.shape[1]
-    if T:
-        v0 = (chunk[0:1, :], chunk[1:2, :], chunk[2:3, :])   # (1, M) rows
-        e1 = (chunk[3:4, :], chunk[4:5, :], chunk[5:6, :])
-        e2 = (chunk[6:7, :], chunk[7:8, :], chunk[8:9, :])
-        oid = jnp.broadcast_to(chunk[9:10, :], (128, M))     # exact ids
-        red_ax = 1                                           # lanes = tris
-    else:
-        # Geometry + id rows -> triangle-major (M, 16) columns for the
-        # Moller-Trumbore (M, 1) x (1, 128) broadcast.  Only these 16 rows
-        # transpose; the attribute rows feed the MXU untouched.
-        geo = jnp.transpose(chunk[0:PACK_ATTR0, :], (1, 0))  # (M, 16)
-        v0 = (geo[:, 0:1], geo[:, 1:2], geo[:, 2:3])
-        e1 = (geo[:, 3:4], geo[:, 4:5], geo[:, 5:6])
-        e2 = (geo[:, 6:7], geo[:, 7:8], geo[:, 8:9])
-        oid = jnp.broadcast_to(geo[:, 9:10], (M, 128))       # exact ids
-        red_ax = 0                                           # sublanes
-    ok, t, u, v = _mt_core(o, d, v0, e1, e2)
-
-    if tmax is not None:
-        blocking = ok & (t < tmax) & (oid != excl)
-        return jnp.any(blocking, axis=red_ax, keepdims=True)
-
-    t = jnp.where(ok, t, BIG)
-    tmin = jnp.min(t, axis=red_ax, keepdims=True)
-    is_min = t == tmin
-    idsel = jnp.min(
-        jnp.where(is_min, oid, ID_SENTINEL), axis=red_ax, keepdims=True
-    )
-    sel = is_min & (oid == idsel)                         # one-hot per lane
-    cu = jnp.sum(jnp.where(sel, u, 0.0), axis=red_ax, keepdims=True)
-    cv = jnp.sum(jnp.where(sel, v, 0.0), axis=red_ax, keepdims=True)
-    attrs_c = chunk[PACK_ATTR0 : PACK_ATTR0 + ATTR_K, :]  # (AK, M)
-    if T:
-        cattr = jax.lax.dot_general(
-            sel.astype(jnp.float32),                      # (128, M)
-            attrs_c,                                      # (AK, M)
-            (((1,), (1,)), ((), ())),
-            preferred_element_type=jnp.float32,
-        )                                                 # (128, AK)
-    else:
-        cattr = jnp.dot(
-            attrs_c,
-            sel.astype(jnp.float32),                      # (M, 128)
-            preferred_element_type=jnp.float32,
-        )                                                 # (AK, 128)
-    return tmin, idsel, cu, cv, cattr
-
-
-def _closest_init(T=False):
-    col = (128, 1) if T else (1, 128)
-    attr = (128, ATTR_K) if T else (ATTR_K, 128)
-    return (
-        jnp.full(col, BIG, jnp.float32),
-        jnp.full(col, ID_SENTINEL, jnp.float32),
-        jnp.zeros(col, jnp.float32),
-        jnp.zeros(col, jnp.float32),
-        jnp.zeros(attr, jnp.float32),
-    )
+def _tile(geo_ref, base, o, d, sub):
+    """(RB, sub) Moller-Trumbore tile: packed slots [base, base + sub)
+    against the row's rays (o, d: tuples of (RB, 1) columns)."""
+    f = [geo_ref[k, pl.ds(base, sub)][None, :] for k in range(GEO_W)]
+    ok, t, u, v = _mt_core(o, d, f[0:3], f[3:6], f[6:9])
+    return ok, t, u, v, f[9]
 
 
 def _closest_merge(carry, visit):
-    best_t, best_id, best_u, best_v, best_attr = carry
-    tmin, idsel, cu, cv, cattr = visit
+    best_t, best_id, best_u, best_v = carry
+    tmin, idsel, cu, cv = visit
     better = (tmin < best_t) | (
         (tmin == best_t) & (idsel < best_id) & (tmin < BIG)
     )
@@ -431,556 +379,190 @@ def _closest_merge(carry, visit):
         jnp.where(better, idsel, best_id),
         jnp.where(better, cu, best_u),
         jnp.where(better, cv, best_v),
-        jnp.where(better, cattr, best_attr),
     )
 
 
-def _store_closest(b, carry, t_ref, id_ref, u_ref, v_ref, attr_out, T=False):
-    bt, bi, bu, bv, ba = carry
-    if T:
-        # One relayout per ROW (after all trips), not per visit.
-        bt, bi, bu, bv = (jnp.transpose(x, (1, 0)) for x in (bt, bi, bu, bv))
-        ba = jnp.transpose(ba, (1, 0))
-    t_ref[pl.ds(b, 1), :] = bt
-    id_ref[pl.ds(b, 1), :] = jnp.where(bt < BIG, bi, 0.0).astype(jnp.int32)
-    u_ref[pl.ds(b, 1), :] = bu
-    v_ref[pl.ds(b, 1), :] = bv
-    attr_out[:, pl.ds(b, 1), :] = ba[:, None, :]
+def _closest_cluster(carry, geo_ref, cid, o, d, M, sub):
+    """Merge one cluster's best (t, original id, u, v) per ray into carry:
+    the lexicographic-(t, id) minimum, tile by tile."""
+
+    def tile(s, carry):
+        ok, t, u, v, oid = _tile(geo_ref, cid * M + s * sub, o, d, sub)
+        t = jnp.where(ok, t, BIG)
+        tmin = jnp.min(t, axis=1)
+        is_min = t == tmin[:, None]
+        idsel = jnp.min(jnp.where(is_min, oid, ID_SENTINEL), axis=1)
+        sel = is_min & (oid == idsel[:, None])              # one per ray
+        cu = jnp.sum(jnp.where(sel, u, 0.0), axis=1)
+        cv = jnp.sum(jnp.where(sel, v, 0.0), axis=1)
+        return _closest_merge(carry, (tmin, idsel, cu, cv))
+
+    return jax.lax.fori_loop(0, M // sub, tile, carry)
 
 
-def _row_rays(o_ref, d_ref, b, T=False):
-    o = (o_ref[0, pl.ds(b, 1)], o_ref[1, pl.ds(b, 1)], o_ref[2, pl.ds(b, 1)])
-    d = (d_ref[0, pl.ds(b, 1)], d_ref[1, pl.ds(b, 1)], d_ref[2, pl.ds(b, 1)])
-    if T:
-        # (1, 128) -> (128, 1) columns once per row; reused by every visit.
-        o = tuple(jnp.transpose(x, (1, 0)) for x in o)
-        d = tuple(jnp.transpose(x, (1, 0)) for x in d)
+def _any_cluster(occ, geo_ref, cid, o, d, tmax, excl, M, sub):
+    """OR one cluster's blockers (t < tmax, id != excl) into occ (f32 0/1)."""
+
+    def tile(s, occ):
+        ok, t, _, _, oid = _tile(geo_ref, cid * M + s * sub, o, d, sub)
+        blocking = ok & (t < tmax[:, None]) & (oid != excl[:, None])
+        return jnp.maximum(
+            occ, jnp.max(jnp.where(blocking, 1.0, 0.0), axis=1)
+        )
+
+    return jax.lax.fori_loop(0, M // sub, tile, occ)
+
+
+def _row_rays(o_ref, d_ref, r):
+    o = tuple(o_ref[a, r, :][:, None] for a in range(3))     # (RB, 1)
+    d = tuple(d_ref[a, r, :][:, None] for a in range(3))
     return o, d
 
 
-def _row_helpers(meta_ref, ids_ref, nears_ref, cutoff_ref, b, Le):
-    """Per-row id/near/cutoff accessors shared by the visit kernels.
+def _closest_kernel(*refs, M, Le, NK, RB, cull, sub):
+    if cull:
+        meta_ref, ids_ref, nears_ref, cutoff_ref = refs[:4]
+        refs = refs[4:]
+    o_ref, d_ref, geo_ref, t_ref, id_ref, u_ref, v_ref = refs
+    r = pl.program_id(0)
+    o, d = _row_rays(o_ref, d_ref, r)
+    init = (
+        jnp.full((RB,), BIG, jnp.float32),
+        jnp.full((RB,), ID_SENTINEL, jnp.float32),
+        jnp.zeros((RB,), jnp.float32),
+        jnp.zeros((RB,), jnp.float32),
+    )
 
-    Phase 1 visits the trip (<= Le) listed boxes near-to-far; early-exit
-    soundness: ids arrive near-ascending and ``nears[j]`` lower-bounds
-    every lane's intersection t inside box j (see :func:`_order_hits`), so
-    once every lane's best t is below the next box's near, no later box
-    can improve any lane.  ``cutoff`` bounds everything *not* in the list:
-    after phase 1, a row is exact iff every lane's pending work (best t /
-    open tmax) sits below it; otherwise the kernel runs the residual
-    identity-order phase-2 sweep.
-    """
-    trip = meta_ref[b, 0]
-    cutoff = cutoff_ref[b, 0]
+    def visit(c, cid):
+        return _closest_cluster(c, geo_ref, cid, o, d, M, sub)
 
-    def cid_of(j):
-        return ids_ref[b, jnp.minimum(j, Le - 1)]
-
-    def near_of(j):
-        return nears_ref[b, jnp.minimum(j, Le - 1)]
-
-    return trip, cutoff, cid_of, near_of
-
-
-def _closest_kernel(
-    meta_ref, ids_ref, nears_ref, cutoff_ref, o_ref, d_ref, pack_ref,
-    t_ref, id_ref, u_ref, v_ref, attr_out, *, M, Le, T, U,
-):
-    NK = pack_ref.shape[0] // PACK_W          # static cluster count
-    NKU = -(-NK // U) * U                     # padded to the unroll
-
-    def row_body(b, _):
-        trip, cutoff, cid_of, near_of = _row_helpers(
-            meta_ref, ids_ref, nears_ref, cutoff_ref, b, Le
-        )
-        o, d = _row_rays(o_ref, d_ref, b, T=T)
-        # Unroll factor U: each loop iteration visits U clusters and checks
-        # the early-exit bound once per GROUP — the per-visit (lane-reduce
-        # -> scalar branch) sync is a measured serial-latency tax.  Visit
-        # indices past trip clamp to the last listed cluster: a repeat
-        # visit is idempotent under _closest_merge, and any cluster visit
-        # is CORRECT (never wrong, only redundant) because the cull is
-        # conservative — lanes cannot hit triangles of boxes they miss.
-        tripU = -(-trip // U) * U
+    if not cull:
+        carry = jax.lax.fori_loop(0, NK, lambda j, c: visit(c, j), init)
+    else:
+        # Phase 1: the listed boxes near-to-far.  nears[j] lower-bounds
+        # every ray's t inside box j, so once every ray's best t is below
+        # it, no later box can improve any ray.
+        trip = meta_ref[r, 0]
+        cutoff = cutoff_ref[r, 0]
 
         def cond(state):
-            j, carry = state
-            return (j < tripU) & (jnp.max(carry[0]) >= near_of(j))
+            j, c = state
+            near = nears_ref[r, jnp.minimum(j, Le - 1)]
+            return (j < trip) & (jnp.max(c[0]) >= near)
 
         def body(state):
-            j, carry = state
-            for u in range(U):
-                cidu = cid_of(jnp.minimum(j + u, trip - 1))
-                chunk = pack_ref[pl.ds(cidu * PACK_W, PACK_W), :]
-                carry = _closest_merge(
-                    carry, _visit_chunk(chunk, o, d, T=T)
-                )
-            return j + U, carry
+            j, c = state
+            return j + 1, visit(c, ids_ref[r, j])
 
-        _, carry = jax.lax.while_loop(
-            cond, body, (jnp.int32(0), _closest_init(T))
-        )
+        _, carry = jax.lax.while_loop(cond, body, (jnp.int32(0), init))
 
-        # Phase 2 (overflow rows only): identity-order residual sweep,
-        # entered/continued only while some lane's best t could still be
-        # beaten by an unlisted box (entry >= cutoff); revisits of listed
-        # boxes are idempotent under _closest_merge.  Non-overflow rows
-        # carry cutoff = +inf and never enter (miss sentinel BIG < inf).
+        # Phase 2 (overflow rows only): identity-order residual sweep while
+        # some ray's best t could still be beaten by an unlisted box
+        # (entry >= cutoff).  Non-overflow rows carry cutoff = +inf.
         def cond2(state):
-            j, carry = state
-            return (j < NKU) & (jnp.max(carry[0]) >= cutoff)
+            j, c = state
+            return (j < NK) & (jnp.max(c[0]) >= cutoff)
 
         def body2(state):
-            j, carry = state
-            for u in range(U):
-                cidu = jnp.minimum(j + u, NK - 1)
-                chunk = pack_ref[pl.ds(cidu * PACK_W, PACK_W), :]
-                carry = _closest_merge(
-                    carry, _visit_chunk(chunk, o, d, T=T)
-                )
-            return j + U, carry
+            j, c = state
+            return j + 1, visit(c, j)
 
         _, carry = jax.lax.while_loop(cond2, body2, (jnp.int32(0), carry))
-        _store_closest(b, carry, t_ref, id_ref, u_ref, v_ref, attr_out, T=T)
-        return _
 
-    jax.lax.fori_loop(0, TILE_ROWS, row_body, 0)
+    bt, bi, bu, bv = carry
+    t_ref[r, :] = bt
+    id_ref[r, :] = jnp.where(bt < BIG, bi, 0.0).astype(jnp.int32)
+    u_ref[r, :] = bu
+    v_ref[r, :] = bv
 
 
-def _any_kernel(
-    meta_ref, ids_ref, nears_ref, cutoff_ref, o_ref, d_ref, tmax_ref,
-    excl_ref, pack_ref, occ_ref, *, M, Le, T, U,
-):
-    NK = pack_ref.shape[0] // PACK_W          # static cluster count
-    NKU = -(-NK // U) * U
+def _any_kernel(*refs, M, Le, NK, RB, cull, sub):
+    if cull:
+        meta_ref, ids_ref, nears_ref, cutoff_ref = refs[:4]
+        refs = refs[4:]
+    o_ref, d_ref, tmax_ref, excl_ref, geo_ref, occ_ref = refs
+    r = pl.program_id(0)
+    o, d = _row_rays(o_ref, d_ref, r)
+    tmax = tmax_ref[r, :]
+    excl = excl_ref[r, :]
 
-    def row_body(b, _):
-        trip, cutoff, cid_of, near_of = _row_helpers(
-            meta_ref, ids_ref, nears_ref, cutoff_ref, b, Le
-        )
-        o, d = _row_rays(o_ref, d_ref, b, T=T)
-        tmax = tmax_ref[pl.ds(b, 1), :]
-        excl = excl_ref[pl.ds(b, 1), :]
-        if T:
-            tmax = jnp.transpose(tmax, (1, 0))
-            excl = jnp.transpose(excl, (1, 0))
-        tripU = -(-trip // U) * U             # see _closest_kernel unroll
+    def visit(occ, cid):
+        return _any_cluster(occ, geo_ref, cid, o, d, tmax, excl, M, sub)
 
-        # The occlusion mask is carried as float32 (0.0 / 1.0), not bool:
-        # Mosaic cannot legalize an `scf.yield` of a vector<i1> loop carry
-        # (verified on v5e — "failed to legalize operation 'scf.yield'",
-        # vector<8x128xi1>), while f32 carries lower fine.
-        # Exits early when every lane is occluded, or when the next box's
-        # entry bound exceeds every *unoccluded* lane's tmax (boxes are
-        # near-ascending, so no later box can block those lanes either).
+    def open_tmax(occ):
+        return jnp.max(jnp.where(occ < 1.0, tmax, -BIG))
+
+    init = jnp.zeros((RB,), jnp.float32)
+    if not cull:
+        occ = jax.lax.fori_loop(0, NK, lambda j, c: visit(c, j), init)
+    else:
+        trip = meta_ref[r, 0]
+        cutoff = cutoff_ref[r, 0]
+
+        # Exits when every ray is occluded, or when the next box's entry
+        # exceeds every unoccluded ray's tmax (boxes are near-ascending).
         def cond(state):
-            j, occf = state
-            open_tmax = jnp.max(jnp.where(occf < 1.0, tmax, -BIG))
-            return (j < tripU) & (jnp.min(occf) < 1.0) & (
-                near_of(j) <= open_tmax
-            )
+            j, occ = state
+            near = nears_ref[r, jnp.minimum(j, Le - 1)]
+            return (j < trip) & (jnp.min(occ) < 1.0) & (near <= open_tmax(occ))
 
         def body(state):
-            j, occf = state
-            for u in range(U):
-                cidu = cid_of(jnp.minimum(j + u, trip - 1))
-                chunk = pack_ref[pl.ds(cidu * PACK_W, PACK_W), :]
-                hit = _visit_chunk(chunk, o, d, tmax, excl, T=T)
-                occf = jnp.maximum(occf, hit.astype(jnp.float32))
-            return j + U, occf
+            j, occ = state
+            return j + 1, visit(occ, ids_ref[r, j])
 
-        _, occf = jax.lax.while_loop(
-            cond, body,
-            (jnp.int32(0),
-             jnp.zeros((128, 1) if T else (1, 128), jnp.float32)),
-        )
+        _, occ = jax.lax.while_loop(cond, body, (jnp.int32(0), init))
 
-        # Phase 2 (overflow rows): unlisted boxes all have entry >= cutoff,
-        # so only unoccluded lanes with tmax >= cutoff still need the
-        # identity-order residual sweep (see _closest_kernel).
+        # Phase 2 (overflow rows): unlisted boxes all have entry >= cutoff.
         def cond2(state):
-            j, occf = state
-            open_tmax = jnp.max(jnp.where(occf < 1.0, tmax, -BIG))
-            return (j < NKU) & (jnp.min(occf) < 1.0) & (cutoff <= open_tmax)
+            j, occ = state
+            return (j < NK) & (jnp.min(occ) < 1.0) & (cutoff <= open_tmax(occ))
 
         def body2(state):
-            j, occf = state
-            for u in range(U):
-                cidu = jnp.minimum(j + u, NK - 1)
-                chunk = pack_ref[pl.ds(cidu * PACK_W, PACK_W), :]
-                hit = _visit_chunk(chunk, o, d, tmax, excl, T=T)
-                occf = jnp.maximum(occf, hit.astype(jnp.float32))
-            return j + U, occf
+            j, occ = state
+            return j + 1, visit(occ, j)
 
-        _, occf = jax.lax.while_loop(cond2, body2, (jnp.int32(0), occf))
-        occ_ref[pl.ds(b, 1), :] = (
-            jnp.transpose(occf, (1, 0)) if T else occf
-        ) > 0.0
-        return _
+        _, occ = jax.lax.while_loop(cond2, body2, (jnp.int32(0), occ))
 
-    jax.lax.fori_loop(0, TILE_ROWS, row_body, 0)
+    occ_ref[r, :] = occ
 
 
-# --- streaming variants: packed matrix in HBM, per-cluster DMA ------------
-
-
-def _stream_closest_kernel(
-    meta_ref, ids_ref, nears_ref, cutoff_ref, o_ref, d_ref, pack_hbm,
-    t_ref, id_ref, u_ref, v_ref, attr_out,
-    scratch, sem, *, M, Le, T, U,
-):
-    NK = pack_hbm.shape[0] // PACK_W          # static cluster count
-    NKU = -(-NK // U) * U
-
-    def row_body(b, acc):
-        trip, cutoff, cid_of, near_of = _row_helpers(
-            meta_ref, ids_ref, nears_ref, cutoff_ref, b, Le
-        )
-        o, d = _row_rays(o_ref, d_ref, b, T=T)
-        tripU = -(-trip // U) * U             # see _closest_kernel unroll
-
-        def dma_to(slot, cid):
-            return pltpu.make_async_copy(
-                pack_hbm.at[pl.ds(cid * PACK_W, PACK_W), :],
-                scratch.at[slot],
-                sem.at[slot],
-            )
-
-        def vc(v):
-            # Clamped visit -> cluster id (repeats are idempotent-safe).
-            return cid_of(jnp.minimum(v, trip - 1))
-
-        def dma(v):
-            return dma_to(jax.lax.rem(v, 2 * U), vc(v))
-
-        # Group-of-U DMA pipeline: kickoff starts group 0; body j starts
-        # group j+U (one group ahead, 2U slots so groups never collide)
-        # then waits/visits group j.  On exit at j_exit < tripU the
-        # in-flight group [j_exit, j_exit+U) is drained — a pending async
-        # copy must always be consumed.
-        @pl.when(trip > 0)
-        def _():
-            for u in range(U):
-                dma(jnp.int32(u)).start()
-
-        def cond(state):
-            j, carry = state
-            return (j < tripU) & (jnp.max(carry[0]) >= near_of(j))
-
-        def body(state):
-            j, carry = state
-            for u in range(U):
-                v = j + U + u
-
-                @pl.when(v < tripU)
-                def _(v=v):
-                    dma(v).start()
-
-            for u in range(U):
-                v = j + u
-                dma(v).wait()
-                chunk = scratch[jax.lax.rem(v, 2 * U)]
-                carry = _closest_merge(
-                    carry, _visit_chunk(chunk, o, d, T=T)
-                )
-            return j + U, carry
-
-        j_exit, carry = jax.lax.while_loop(
-            cond, body, (jnp.int32(0), _closest_init(T))
-        )
-
-        for u in range(U):
-            v = j_exit + u
-
-            @pl.when((trip > 0) & (v < tripU))
-            def _(v=v):
-                dma(v).wait()
-
-        # Phase 2 (overflow rows; see _closest_kernel): identity-order
-        # residual sweep with the same grouped DMA discipline.  `trigger`
-        # is captured before the sweep so kickoff and drain agree on
-        # whether any DMA was ever started.
-        trigger = jnp.max(carry[0]) >= cutoff
-
-        def dma2(v):
-            return dma_to(jax.lax.rem(v, 2 * U), jnp.minimum(v, NK - 1))
-
-        @pl.when(trigger)
-        def _():
-            for u in range(U):
-                dma2(jnp.int32(u)).start()
-
-        def cond2(state):
-            j, carry = state
-            return (j < NKU) & (jnp.max(carry[0]) >= cutoff)
-
-        def body2(state):
-            j, carry = state
-            for u in range(U):
-                v = j + U + u
-
-                @pl.when(v < NKU)
-                def _(v=v):
-                    dma2(v).start()
-
-            for u in range(U):
-                v = j + u
-                dma2(v).wait()
-                chunk = scratch[jax.lax.rem(v, 2 * U)]
-                carry = _closest_merge(
-                    carry, _visit_chunk(chunk, o, d, T=T)
-                )
-            return j + U, carry
-
-        j2, carry = jax.lax.while_loop(cond2, body2, (jnp.int32(0), carry))
-
-        for u in range(U):
-            v = j2 + u
-
-            @pl.when(trigger & (v < NKU))
-            def _(v=v):
-                dma2(v).wait()
-
-        _store_closest(b, carry, t_ref, id_ref, u_ref, v_ref, attr_out, T=T)
-        return acc
-
-    jax.lax.fori_loop(0, TILE_ROWS, row_body, 0)
-
-
-def _stream_any_kernel(
-    meta_ref, ids_ref, nears_ref, cutoff_ref, o_ref, d_ref, tmax_ref,
-    excl_ref, pack_hbm, occ_ref, scratch, sem, *, M, Le, T, U,
-):
-    NK = pack_hbm.shape[0] // PACK_W          # static cluster count
-    NKU = -(-NK // U) * U
-
-    def row_body(b, acc):
-        trip, cutoff, cid_of, near_of = _row_helpers(
-            meta_ref, ids_ref, nears_ref, cutoff_ref, b, Le
-        )
-        o, d = _row_rays(o_ref, d_ref, b, T=T)
-        tmax = tmax_ref[pl.ds(b, 1), :]
-        excl = excl_ref[pl.ds(b, 1), :]
-        if T:
-            tmax = jnp.transpose(tmax, (1, 0))
-            excl = jnp.transpose(excl, (1, 0))
-        tripU = -(-trip // U) * U             # see _closest_kernel unroll
-
-        def dma_to(slot, cid):
-            return pltpu.make_async_copy(
-                pack_hbm.at[pl.ds(cid * PACK_W, PACK_W), :],
-                scratch.at[slot],
-                sem.at[slot],
-            )
-
-        def vc(v):
-            return cid_of(jnp.minimum(v, trip - 1))
-
-        def dma(v):
-            return dma_to(jax.lax.rem(v, 2 * U), vc(v))
-
-        # Group-of-U DMA pipeline (see _stream_closest_kernel).
-        # f32 occlusion carry for the same Mosaic vector<i1>-yield reason
-        # as the resident any-kernel above.
-        @pl.when(trip > 0)
-        def _():
-            for u in range(U):
-                dma(jnp.int32(u)).start()
-
-        def cond(state):
-            j, occf = state
-            open_tmax = jnp.max(jnp.where(occf < 1.0, tmax, -BIG))
-            return (j < tripU) & (jnp.min(occf) < 1.0) & (
-                near_of(j) <= open_tmax
-            )
-
-        def body(state):
-            j, occf = state
-            for u in range(U):
-                v = j + U + u
-
-                @pl.when(v < tripU)
-                def _(v=v):
-                    dma(v).start()
-
-            for u in range(U):
-                v = j + u
-                dma(v).wait()
-                chunk = scratch[jax.lax.rem(v, 2 * U)]
-                hit = _visit_chunk(chunk, o, d, tmax, excl, T=T)
-                occf = jnp.maximum(occf, hit.astype(jnp.float32))
-            return j + U, occf
-
-        j_exit, occf = jax.lax.while_loop(
-            cond, body,
-            (jnp.int32(0),
-             jnp.zeros((128, 1) if T else (1, 128), jnp.float32)),
-        )
-
-        for u in range(U):
-            v = j_exit + u
-
-            @pl.when((trip > 0) & (v < tripU))
-            def _(v=v):
-                dma(v).wait()
-
-        # Phase 2 (overflow rows; see _any_kernel): residual sweep only
-        # while some unoccluded lane's tmax reaches past the cutoff.
-        def unresolved(occf):
-            open_tmax = jnp.max(jnp.where(occf < 1.0, tmax, -BIG))
-            return (jnp.min(occf) < 1.0) & (cutoff <= open_tmax)
-
-        trigger = unresolved(occf)
-
-        def dma2(v):
-            return dma_to(jax.lax.rem(v, 2 * U), jnp.minimum(v, NK - 1))
-
-        @pl.when(trigger)
-        def _():
-            for u in range(U):
-                dma2(jnp.int32(u)).start()
-
-        def cond2(state):
-            j, occf = state
-            return (j < NKU) & unresolved(occf)
-
-        def body2(state):
-            j, occf = state
-            for u in range(U):
-                v = j + U + u
-
-                @pl.when(v < NKU)
-                def _(v=v):
-                    dma2(v).start()
-
-            for u in range(U):
-                v = j + u
-                dma2(v).wait()
-                chunk = scratch[jax.lax.rem(v, 2 * U)]
-                hit = _visit_chunk(chunk, o, d, tmax, excl, T=T)
-                occf = jnp.maximum(occf, hit.astype(jnp.float32))
-            return j + U, occf
-
-        j2, occf = jax.lax.while_loop(cond2, body2, (jnp.int32(0), occf))
-
-        for u in range(U):
-            v = j2 + u
-
-            @pl.when(trigger & (v < NKU))
-            def _(v=v):
-                dma2(v).wait()
-
-        occ_ref[pl.ds(b, 1), :] = (
-            jnp.transpose(occf, (1, 0)) if T else occf
-        ) > 0.0
-        return acc
-
-    jax.lax.fori_loop(0, TILE_ROWS, row_body, 0)
-
-
-# ---------------------------------------------------------------------------
-# pallas_call wrappers
-# ---------------------------------------------------------------------------
-
-
-def _common_specs(Le):
-    smem_meta = pl.BlockSpec(
-        (TILE_ROWS, 2), lambda i: (i, 0), memory_space=pltpu.SMEM
-    )
-    smem_ids = pl.BlockSpec(
-        (TILE_ROWS, Le), lambda i: (i, 0), memory_space=pltpu.SMEM
-    )
-    smem_nears = pl.BlockSpec(
-        (TILE_ROWS, Le), lambda i: (i, 0), memory_space=pltpu.SMEM
-    )
-    smem_cutoff = pl.BlockSpec(
-        (TILE_ROWS, 1), lambda i: (i, 0), memory_space=pltpu.SMEM
-    )
-    ray = pl.BlockSpec(
-        (3, TILE_ROWS, 128), lambda i: (0, i, 0), memory_space=pltpu.VMEM
-    )
-    row = pl.BlockSpec(
-        (TILE_ROWS, 128), lambda i: (i, 0), memory_space=pltpu.VMEM
-    )
-    return smem_meta, smem_ids, smem_nears, smem_cutoff, ray, row
-
-
-@partial(jax.jit,
-         static_argnames=("M", "Le", "stream", "interpret", "T", "U"))
-def _closest_call(meta, ids, nears, cutoff, o3, d3, packed, M, Le, stream,
-                  interpret=False, T=False, U=1):
-    B0 = o3.shape[1]
-    smem_meta, smem_ids, smem_nears, smem_cutoff, ray, row = _common_specs(Le)
-    pack_spec = pl.BlockSpec(
-        memory_space=pl.ANY if stream else pltpu.VMEM
-    )
-    out_shape = [
-        jax.ShapeDtypeStruct((B0, 128), jnp.float32),
-        jax.ShapeDtypeStruct((B0, 128), jnp.int32),
-        jax.ShapeDtypeStruct((B0, 128), jnp.float32),
-        jax.ShapeDtypeStruct((B0, 128), jnp.float32),
-        jax.ShapeDtypeStruct((ATTR_K, B0, 128), jnp.float32),
-    ]
-    kernel = _stream_closest_kernel if stream else _closest_kernel
+@partial(jax.jit, static_argnames=("M", "Le", "sub", "warps", "interpret"))
+def _closest_call(lists, o3, d3, geo, M, Le, sub, warps, interpret=False):
+    """lists: (meta, ids, nears, cutoff) from the cull, or () for a dense
+    sweep over every cluster.  o3/d3: (3, NR, RB).  ``sub`` triangles per
+    register tile, ``warps`` warps per program."""
+    NR, RB = o3.shape[1:]
+    NK = geo.shape[1] // M
+    row = jax.ShapeDtypeStruct((NR, RB), jnp.float32)
     return pl.pallas_call(
-        partial(kernel, M=M, Le=Le, T=T, U=U),
-        grid=(B0 // TILE_ROWS,),
-        out_shape=out_shape,
-        in_specs=[smem_meta, smem_ids, smem_nears, smem_cutoff, ray, ray,
-                  pack_spec],
-        out_specs=[row] * 4
-        + [
-            pl.BlockSpec(
-                (ATTR_K, TILE_ROWS, 128),
-                lambda i: (0, i, 0),
-                memory_space=pltpu.VMEM,
-            )
-        ],
-        scratch_shapes=(
-            [
-                pltpu.VMEM((2 * U, PACK_W, M), jnp.float32),
-                pltpu.SemaphoreType.DMA((2 * U,)),
-            ]
-            if stream
-            else []
-        ),
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=VMEM_LIMIT_BYTES
-        ),
+        partial(_closest_kernel, M=M, Le=Le, NK=NK, RB=RB,
+                cull=bool(lists), sub=sub),
+        grid=(NR,),
+        out_shape=[row, jax.ShapeDtypeStruct((NR, RB), jnp.int32), row, row],
+        backend="triton",
+        compiler_params=plt.CompilerParams(num_warps=warps,
+                                           num_stages=NUM_STAGES),
         interpret=interpret,
-    )(meta, ids, nears, cutoff, o3, d3, packed)
+        name="cluster_closest",
+    )(*lists, o3, d3, geo)
 
 
-@partial(jax.jit,
-         static_argnames=("M", "Le", "stream", "interpret", "T", "U"))
-def _any_call(meta, ids, nears, cutoff, o3, d3, tmax, excl, packed, M, Le,
-              stream, interpret=False, T=False, U=1):
-    B0 = o3.shape[1]
-    smem_meta, smem_ids, smem_nears, smem_cutoff, ray, row = _common_specs(Le)
-    pack_spec = pl.BlockSpec(
-        memory_space=pl.ANY if stream else pltpu.VMEM
-    )
-    kernel = _stream_any_kernel if stream else _any_kernel
+@partial(jax.jit, static_argnames=("M", "Le", "sub", "warps", "interpret"))
+def _any_call(lists, o3, d3, tmax, excl, geo, M, Le, sub, warps,
+              interpret=False):
+    NR, RB = o3.shape[1:]
+    NK = geo.shape[1] // M
     return pl.pallas_call(
-        partial(kernel, M=M, Le=Le, T=T, U=U),
-        grid=(B0 // TILE_ROWS,),
-        out_shape=jax.ShapeDtypeStruct((B0, 128), jnp.bool_),
-        in_specs=[smem_meta, smem_ids, smem_nears, smem_cutoff, ray, ray,
-                  row, row, pack_spec],
-        out_specs=row,
-        scratch_shapes=(
-            [
-                pltpu.VMEM((2 * U, PACK_W, M), jnp.float32),
-                pltpu.SemaphoreType.DMA((2 * U,)),
-            ]
-            if stream
-            else []
-        ),
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=VMEM_LIMIT_BYTES
-        ),
+        partial(_any_kernel, M=M, Le=Le, NK=NK, RB=RB, cull=bool(lists),
+                sub=sub),
+        grid=(NR,),
+        out_shape=jax.ShapeDtypeStruct((NR, RB), jnp.float32),
+        backend="triton",
+        compiler_params=plt.CompilerParams(num_warps=warps,
+                                           num_stages=NUM_STAGES),
         interpret=interpret,
-    )(meta, ids, nears, cutoff, o3, d3, tmax, excl, packed)
+        name="cluster_any",
+    )(*lists, o3, d3, tmax, excl, geo)
 
 
 # ---------------------------------------------------------------------------
@@ -990,69 +572,55 @@ def _any_call(meta, ids, nears, cutoff, o3, d3, tmax, excl, packed, M, Le,
 
 def make_cluster_intersectors(
     scene: SceneArrays,
-    M: int = 128,
-    Lmax: int | None = None,
-    interpret: bool | None = None,
+    M: int | None = None,
+    Lmax: int = LMAX,
+    interpret: bool = False,
     clusters: ClusterArrays | None = None,
-    stream: bool | None = None,
-    visit_t: bool | None = None,
-    visit_u: int | None = None,
-    beam: bool | None = None,
+    ray_block: int | None = None,
+    cull: bool = True,
 ) -> Tuple[ClosestFn, AnyFn]:
-    """Cluster-culled Pallas intersectors for large scenes.
+    """Cluster-culled Triton intersectors.
 
     The meshlet decomposition (permutation + boxes) is built host-side from
     the scene's *concrete* geometry; rebuild the intersectors if vertex
     positions change materially (box padding absorbs <= 1e-4 drift).  The
-    kernel's packed cluster matrix is derived from the (possibly traced)
-    scene arrays with in-graph gathers, so gradients flow to
-    kd/ke/uv/vertices exactly as in the dense kernel.
+    kernel's geometry matrix is derived from the (possibly traced) scene
+    arrays with in-graph gathers, so gradients flow to kd/ke/uv/vertices
+    exactly as on the brute-force path.
 
-    ``stream=None`` auto-selects the HBM-streaming kernel when the packed
-    matrix exceeds the VMEM residency budget.  (A two-level supercluster
-    cull existed through round 5 and was DELETED: at its K=23,436 design
-    point the flat sweep with wide near-ordered lists + the phase-2
-    cutoff beat it 2.3x — BENCH_r05 ``atrium3m`` hier 11.55 s vs flat
-    5.10 s — and the 2^24 triangle-id cap bounds any scale where the
-    O(K) flat slab could lose; docs/ROOFLINE.md r5 deletion record.)
-
-    ``visit_t`` / ``visit_u`` / ``beam`` (all env-overridable, defaults
-    are the measured r5 winners): transposed visit layout (rays on
-    sublanes — default ON), U-way visit-loop unroll with group early-exit
-    (default 8), and the conservative per-row beam cull (default OFF —
-    measured 4.5x slower end-to-end; kept as an opt-in record).
+    ``ray_block`` rays share one candidate list and one kernel program
+    (a power of two dividing 128; default ``RAY_BLOCK``); ``M`` is the
+    cluster size (a multiple of ``SUB`` or a power of two below it;
+    default :func:`cluster_size` of the scene, capped at the scene's own
+    size).  ``cull=False`` skips the cull and visits every cluster: the
+    dense sweep.  The kernel compiles for the GPU only; ``interpret``
+    runs it in the Pallas interpreter (tests on CPU).
 
     The returned functions carry a ``bind_scene(scene)`` attribute: it
-    re-derives the packed buffers from the *given* scene pytree and returns
+    re-derives the buffers from the *given* scene pytree and returns
     planar (closest, any) functions bound to them.  The integrator calls it
-    with its (usually traced) scene argument so the packed matrix becomes a
-    value computed from jit arguments — NOT an 88 MB MLIR constant (the
-    round-3 sponza 237 s compile cliff) — and is derived once per frame,
-    hoisted out of the sample/bounce scans.  For many frames of an
+    with its (usually traced) scene argument so the buffers become values
+    computed from jit arguments instead of large constants, derived once
+    per frame outside the sample/bounce scans.  For many frames of an
     UNCHANGING scene, ``derive_buffers`` + ``bind_buffers`` pass the
-    buffers as jit arguments instead (zero per-frame derivation; see their
-    docstrings).
+    buffers as jit arguments instead (see their docstrings).
     """
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-    if visit_t is None:
-        # Transposed visit layout (rays on sublanes, triangles on lanes):
-        # zero per-visit geometry relayout, same scalar math (see
-        # _visit_chunk).  Default ON — measured v5e r5: sponza 3052 ->
-        # 2602 ms, nanosuit 319 -> ~291 ms (docs/ROOFLINE.md r5 section).
-        import os as _os
-
-        visit_t = _os.environ.get("CHIAROSCURO_VISIT_T", "1") not in (
-            "0", "", "false")
-    if visit_u is None:
-        # Visit-loop unroll: U clusters per while iteration, early-exit
-        # checked per group — amortizes the per-visit lane-reduce -> scalar
-        # -branch sync.  Default 8 — measured v5e r5 (with visit_t):
-        # sponza 2602 -> 2150 ms, nanosuit 319 -> 273.6 ms.
-        import os as _os
-
-        visit_u = int(_os.environ.get("CHIAROSCURO_VISIT_U", "8"))
+    if not interpret and jax.default_backend() != "gpu":
+        raise ValueError(
+            "the cluster intersector's kernel compiles for the GPU only; "
+            f"this process runs on {jax.default_backend()!r}. Pass "
+            "interpret=True to run it in the Pallas interpreter."
+        )
+    T = scene.tri_v0.shape[0]
+    if T >= int(ID_SENTINEL):
+        raise ValueError("cluster intersector supports < 2^24 triangles")
+    ray_block = ray_block or RAY_BLOCK
+    if 128 % ray_block or ray_block & (ray_block - 1):
+        raise ValueError(f"ray_block must be a power of two dividing 128, "
+                         f"got {ray_block}")
     if clusters is None:
+        if M is None:
+            M = min(cluster_size(T), -(-T // SUB) * SUB)
         clusters = build_clusters(
             np.asarray(scene.tri_v0),
             np.asarray(scene.tri_v1),
@@ -1061,50 +629,25 @@ def make_cluster_intersectors(
         )
     M = clusters.M
     K = clusters.K
-    if Lmax is None:
-        # Candidate-list width: a large list is nearly free at run time (the
-        # near-ordered kernels early-exit, memory is (B0, Le) + SMEM) while
-        # a small one forces overflow rows through the phase-2 residual
-        # sweep.  r5 sweep on the 480k atrium (K=3,760, visit_t/U=8,
-        # whole frame): Le=256 4,049 ms / 512 2,150 / 768 1,614 /
-        # 1,024 1,455 / 1,536 1,434 / 3,008 1,429 — plateau from ~1,536
-        # (docs/ROOFLINE.md r5).  1536 costs 96 KB of SMEM ids+nears per
-        # 8-row tile.
-        Lmax = 1536
+    sub, warps = min(SUB, M), NUM_WARPS
+    if M % sub or sub & (sub - 1):
+        raise ValueError(f"cluster size M={M} must be a multiple of {SUB} "
+                         "or a power of two below it")
     Le = min(Lmax, K)
-    T = scene.tri_v0.shape[0]
-    if T >= int(ID_SENTINEL):
-        raise ValueError("cluster intersector supports < 2^24 triangles")
-    if stream is None:
-        stream = K * M * PACK_W * 4 > RESIDENT_BUDGET_BYTES
     # Host (numpy) constants: captured by jitted callers without a
     # device->host fetch at lowering time (utils/hostconst.py).
     bmin = np.asarray(clusters.bbox_min)
     bmax = np.asarray(clusters.bbox_max)
-    if beam is None:
-        # Conservative per-row beam cull: sound for any wavefront and
-        # 128x cheaper slab arithmetic — but measured 4.5x SLOWER
-        # end-to-end on the sorted 480k atrium (9.64 s vs 2.15 s,
-        # v5e r5): even (cone, cell)-sorted bounce rows expand to
-        # scene-scale beams over the hall's path lengths, and the
-        # inflated candidate lists cost the visit kernels far more
-        # than the cull saves.  Re-confirms the r2 finding that
-        # per-lane exactness is what keeps lists short; kept as an
-        # opt-in measured record (CHIAROSCURO_BEAM_CULL=1).
-        import os as _os
-
-        beam = _os.environ.get("CHIAROSCURO_BEAM_CULL", "") in (
-            "1", "true")
-    cull_fn = _cull_rows_beam if beam else _cull_rows
-    cull = partial(cull_fn, bmin=bmin, bmax=bmax, Lmax=Le)
+    cull_fn = partial(_cull_rows, bmin=bmin, bmax=bmax, Lmax=Le)
     oid = np.asarray(clusters.orig_id)                     # (K*M,) i32
     safe_oid = np.minimum(oid, T - 1)
     real = oid < T
     oid_f = np.where(real, oid.astype(np.float32), ID_SENTINEL)
 
     def _derive(scene, xp):
-        """Packed buffers; ``xp=jnp`` keeps them in-graph (differentiable
-        w.r.t. scene fields), ``xp=np`` builds host constants once."""
+        """(tri_orig, attr_rows, geo); ``xp=jnp`` keeps them in-graph
+        (differentiable w.r.t. scene fields), ``xp=np`` builds host
+        constants once."""
         tri_orig = xp.concatenate(
             [
                 scene.tri_v0,
@@ -1113,70 +656,57 @@ def make_cluster_intersectors(
             ],
             axis=1,
         )                                                  # (T, 9)
-        attrT_orig = _prep_attrs(scene, 1, xp)             # (ATTR_K, T)
         tri_perm = xp.where(real[:, None], tri_orig[safe_oid], 0.0)
-        attr_perm = xp.where(
-            real[None, :], attrT_orig[:, safe_oid], 0.0
-        )                                                  # (ATTR_K, K*M)
         geo = xp.concatenate(
-            [tri_perm, oid_f[:, None]], axis=1             # (K*M, 10)
-        ).reshape(K, M, 10).transpose(0, 2, 1)             # (K, 10, M)
-        packed = xp.concatenate(
-            [
-                geo,                                       # rows [0:10]
-                xp.zeros((K, PACK_ATTR0 - 10, M), np.float32),
-                attr_perm.reshape(ATTR_K, K, M).transpose(1, 0, 2),
-            ],
-            axis=1,
-        ).reshape(K * PACK_W, M)                           # field-major
+            [tri_perm, oid_f[:, None]], axis=1             # (K*M, GEO_W)
+        ).T
         return (
             tri_orig.astype(np.float32),
-            attrT_orig.astype(np.float32),
-            packed.astype(np.float32),
+            _attr_rows(scene, xp).astype(np.float32),
+            geo.astype(np.float32),
         )
 
     from chiaroscuro_tpu.utils.hostconst import host_tree, is_traced
 
     def derive(s):
-        """Packed buffers for a scene: in-graph (traced, differentiable)
-        when ``s`` is traced, host numpy constants otherwise."""
+        """Buffers for a scene: in-graph (traced, differentiable) when
+        ``s`` is traced, host numpy constants otherwise."""
         if is_traced(s):
             return _derive(s, xp=jnp)
         return _derive(host_tree(s), xp=np)
 
-    def _closest_impl(o3, d3, packed):
-        B0 = o3.shape[1]
-        o3p = _pad_planar_rows(o3, TILE_ROWS, 1)
-        d3p = _pad_planar_rows(d3, TILE_ROWS, 1)
-        meta, ids, nears, cutoff = cull(o3p, d3p)
-        t, tid, u, v, am = _closest_call(
-            meta, ids, nears, cutoff, o3p, d3p, packed, M, Le, stream,
-            interpret=interpret, T=visit_t, U=visit_u,
-        )
-        return t[:B0], tid[:B0], u[:B0], v[:B0], am[:, :B0]
+    def _blocks(x):
+        """(3, B0, 128) or (B0, 128) -> rows of ray_block rays."""
+        return x.reshape(x.shape[:-2] + (-1, ray_block))
 
-    # custom_vjp over *derived arrays* (tri_orig / attrT_orig / packed), not
-    # the SceneArrays pytree: carrying the full pytree through the residuals
-    # breaks lowering when the call sits inside a lax.scan under jit(grad)
-    # ("No constant handler for DynamicJaxprTracer"); the dense kernel
-    # (intersect_pallas.py) uses the same explicit-arrays pattern.  The true
-    # gradient path is the recompute from the original-order arrays, so the
-    # packed matrix itself gets a zero cotangent by construction.
+    def _closest_impl(o3, d3, geo):
+        B = o3.shape[1:]
+        o3b, d3b = _blocks(o3), _blocks(d3)
+        lists = cull_fn(o3b, d3b) if cull else ()
+        out = _closest_call(lists, o3b, d3b, geo, M, Le, sub, warps,
+                            interpret=interpret)
+        return tuple(x.reshape(B) for x in out)
+
+    # custom_vjp over *derived arrays*, not the SceneArrays pytree: carrying
+    # the full pytree through the residuals breaks lowering when the call
+    # sits inside a lax.scan under jit(grad).  The gradient path is the
+    # recompute from the original-order arrays, so the packed matrix gets
+    # a zero cotangent by construction.
     @jax.custom_vjp
-    def closest(o3, d3, tri_orig, attrT_orig, packed):
-        return _closest_impl(o3, d3, packed)
+    def closest(o3, d3, tri_orig, geo):
+        return _closest_impl(o3, d3, geo)
 
-    def _closest_fwd(o3, d3, tri_orig, attrT_orig, packed):
-        out = _closest_impl(o3, d3, packed)
-        t, tid, u, v, am = out
-        return out, (o3, d3, tri_orig, attrT_orig, tid, t < BIG)
+    def _closest_fwd(o3, d3, tri_orig, geo):
+        out = _closest_impl(o3, d3, geo)
+        t, tid, u, v = out
+        return out, (o3, d3, tri_orig, tid, t < BIG)
 
     def _closest_bwd(res, cts):
-        o3, d3, tri_orig, attrT_orig, tid, hitm = res
-        ct_t, _ct_tid, ct_u, ct_v, ct_am = cts
+        o3, d3, tri_orig, tid, hitm = res
+        ct_t, _ct_tid, ct_u, ct_v = cts
         h = hitm.astype(jnp.float32)
 
-        def recompute(o3, d3, tri_orig, attrT_orig):
+        def recompute(o3, d3, tri_orig):
             tri = tri_orig.T[:, tid]                       # (9, B0, 128)
             _, t, u, v = _mt_core(
                 (o3[0], o3[1], o3[2]),
@@ -1185,38 +715,33 @@ def make_cluster_intersectors(
                 (tri[3], tri[4], tri[5]),
                 (tri[6], tri[7], tri[8]),
             )
-            am = attrT_orig[:, tid]                        # (ATTR_K, B0, 128)
-            return t, u, v, am
+            return t, u, v
 
-        _, vjp = jax.vjp(recompute, o3, d3, tri_orig, attrT_orig)
-        g_o3, g_d3, g_tri, g_attr = vjp(
-            (ct_t * h, ct_u * h, ct_v * h, ct_am * h[None])
-        )
-        return g_o3, g_d3, g_tri, g_attr, jnp.zeros((K * PACK_W, M), jnp.float32)
+        _, vjp = jax.vjp(recompute, o3, d3, tri_orig)
+        g_o3, g_d3, g_tri = vjp((ct_t * h, ct_u * h, ct_v * h))
+        return g_o3, g_d3, g_tri, jnp.zeros((GEO_W, K * M), jnp.float32)
 
     closest.defvjp(_closest_fwd, _closest_bwd)
 
-    def _make_planar_fns(tri_orig, attrT_orig, packed):
+    def _make_planar_fns(tri_orig, attr_rows, geo):
         def closest_planar(o3, d3) -> ClosestHit:
-            t, tid, u, v, am = closest(o3, d3, tri_orig, attrT_orig, packed)
+            t, tid, u, v = closest(o3, d3, tri_orig, geo)
+            am = jnp.moveaxis(jnp.take(attr_rows, tid, axis=0), -1, 0)
             return ClosestHit(t < BIG, t, tid, u, v, unpack_attrs_planar(am))
 
-        packed_sg = jax.lax.stop_gradient(packed)
+        geo_sg = jax.lax.stop_gradient(geo)
 
         def any_planar(o3, d3, tmax, excl):
-            B0 = o3.shape[1]
-            o3 = _pad_planar_rows(jax.lax.stop_gradient(o3), TILE_ROWS, 1)
-            d3 = _pad_planar_rows(jax.lax.stop_gradient(d3), TILE_ROWS, 1)
-            tmax = _pad_planar_rows(jax.lax.stop_gradient(tmax), TILE_ROWS, 0)
-            excl = _pad_planar_rows(
-                excl.astype(jnp.float32), TILE_ROWS, 0
-            )  # ids compared as exact floats in-kernel
-            meta, ids, nears, cutoff = cull(o3, d3, tmax=tmax)
-            occ = _any_call(
-                meta, ids, nears, cutoff, o3, d3, tmax, excl, packed_sg, M,
-                Le, stream, interpret=interpret, T=visit_t, U=visit_u,
-            )
-            return occ[:B0]
+            B = o3.shape[1:]
+            o3b = _blocks(jax.lax.stop_gradient(o3))
+            d3b = _blocks(jax.lax.stop_gradient(d3))
+            tmaxb = _blocks(jax.lax.stop_gradient(tmax))
+            # ids compared as exact floats in-kernel
+            exclb = _blocks(excl.astype(jnp.float32))
+            lists = cull_fn(o3b, d3b, tmax=tmaxb) if cull else ()
+            occ = _any_call(lists, o3b, d3b, tmaxb, exclb, geo_sg, M, Le,
+                            sub, warps, interpret=interpret)
+            return occ.reshape(B) > 0.0
 
         return closest_planar, any_planar
 
@@ -1261,21 +786,11 @@ def make_cluster_intersectors(
         any_fn.derive_buffers = derive_buffers
         closest_fn.bind_buffers = bind_buffers
         any_fn.bind_buffers = bind_buffers
-        # Bounce compaction + spatial ray sorting are only net-positive at
-        # scale: the per-bounce 16-payload lax.sort costs ~60 ms/bounce at
-        # 1 M lanes AND ~170 s of XLA compile, which the tight row unions
-        # repay only when K is large enough for cull-list overflow to
-        # matter.  Measured (v5e, tools/_tpu_r4_nanoprof.py): nanosuit
-        # (K=149) frame 286 ms / 9.5 s compile without compaction vs
-        # 472 ms / 178 s with; the 480k atrium (K=3,760) goes the other
-        # way by an order of magnitude (50 s -> 3 s, ROOFLINE.md sponza
-        # section).  The renderer reads these preferences per intersector.
-        closest_fn.prefers_compaction = K >= COMPACT_MIN_K
-        # The cull quantizes divergence to 128-lane rows: spatially sorting
-        # bounce rays (integrator compaction key) keeps row unions tight,
-        # which is what keeps trips small in enclosed scenes (ROOFLINE.md
-        # sponza section).
-        closest_fn.prefers_ray_sort = K >= COMPACT_MIN_K
+        # Bounce compaction + spatial ray sorting keep the cull's per-row
+        # candidate lists short; they pay for their per-bounce sorts only
+        # when K is large.  The renderer reads these preferences.
+        closest_fn.prefers_compaction = cull and K >= COMPACT_MIN_K
+        closest_fn.prefers_ray_sort = cull and K >= COMPACT_MIN_K
         return closest_fn, any_fn
 
     def bind_scene(s):
@@ -1286,14 +801,12 @@ def make_cluster_intersectors(
         return _finalize(*_make_planar_fns(*derive(s)))
 
     def derive_buffers(s):
-        """(tri_orig, attrT_orig, packed) derived ONCE from a concrete
-        scene, device-resident — for callers that render many frames of an
+        """(tri_orig, attr_rows, geo) derived ONCE from a concrete scene,
+        device-resident — for callers that render many frames of an
         unchanging scene and pass the buffers as jit *arguments* via
-        :func:`bind_buffers`: zero per-frame derivation (the bind_scene
-        path re-derives in-graph when the scene is a traced argument) and
-        zero multi-MB MLIR constants (the r3 sponza 237 s compile cliff).
-        NOT for differentiable paths — stale buffers under parameter
-        updates; use bind_scene with the traced scene there."""
+        :func:`bind_buffers`.  NOT for differentiable paths (stale buffers
+        under parameter updates); use bind_scene with the traced scene
+        there."""
         return tuple(jax.device_put(b) for b in derive(s))
 
     def bind_buffers(bufs):

@@ -1,10 +1,10 @@
-"""Multi-host distributed rendering (pod slices / multiple processes).
+"""Multi-process distributed rendering (several hosts or processes).
 
 The reference is strictly single-process (SURVEY.md §2 parallelism
-inventory).  Here, the same tile-sharded renderer scales across hosts:
+inventory).  Here, the same tile-sharded renderer scales across processes:
 
 - ``initialize()`` wires ``jax.distributed`` (one process per host; XLA
-  collectives ride ICI within a slice and DCN across slices).
+  hands the collectives to NCCL).
 - The global device mesh spans all processes; ``render_frame_sharded`` /
   ``sharded_value_and_grad`` (``parallel/sharding.py``) work unchanged —
   psum over the mesh axis is a cross-host all-reduce.
@@ -34,9 +34,10 @@ def initialize(
 ) -> None:
     """Start jax.distributed when running multi-process.
 
-    With TPU pod metadata available, bare ``jax.distributed.initialize()``
-    autodetects everything; explicit args cover manual launches.
-    No-op when already initialized or single-process.
+    Nothing on a plain GPU host describes a cluster, so pass the
+    coordinator address (``localhost:<port>`` on one host), the process
+    count and this process's id.  No-op when already initialized or
+    single-process.
     """
     if num_processes is not None and num_processes <= 1:
         return

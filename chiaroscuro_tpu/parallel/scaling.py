@@ -6,7 +6,7 @@ module is written to be *the exact code a pod run reuses*:
 
 - ``measure_scaling`` takes whatever devices the caller passes — the 8
   virtual CPU devices in tests (``xla_force_host_platform_device_count``),
-  or ``jax.devices()`` on a real v5e slice — and times the same
+  or ``jax.devices()`` on a multi-GPU host — and times the same
   tile-sharded render (``render_frame_sharded``) at each device count.
 - Efficiency is wall-clock based: ``eff(N) = t(1) / (N * t(N))`` for a
   fixed total frame (strong scaling — the reference's OpenMP row loop,
@@ -18,8 +18,8 @@ Run directly for a report:  ``python -m chiaroscuro_tpu.parallel.scaling``
 python -m chiaroscuro_tpu.parallel.scaling``).
 
 Caveat recorded in the report: virtual CPU devices share one socket, so
-their efficiency number validates *harness + sharding semantics*, not ICI
-bandwidth; only a real slice produces a claimable efficiency.
+their efficiency number validates *harness + sharding semantics*, not
+interconnect bandwidth; only real devices produce a claimable efficiency.
 """
 
 from __future__ import annotations
@@ -115,10 +115,11 @@ def format_report(report: dict) -> str:
     ]
     for n, t, e in zip(report["counts"], report["ms"], report["efficiency"]):
         lines.append(f"  {n:>3} device(s): {t:8.1f} ms   eff {100 * e:5.1f}%")
-    if report["platform"] != "tpu":
+    if report["platform"] == "cpu":
         lines.append(
             "  (virtual/CPU mesh: validates harness + sharding semantics, "
-            "not ICI — efficiency is only claimable on a real slice)"
+            "not the interconnect — efficiency is only claimable on real "
+            "devices)"
         )
     return "\n".join(lines)
 
@@ -135,7 +136,7 @@ def main() -> None:
         scene, cam["eye"], cam["center"], cam["up"], cam["yview"],
         xres=256, yres=256, n_samples=4, depth=3,
         device_counts=counts,
-        intersector="brute" if jax.default_backend() != "tpu" else "auto",
+        intersector="auto",
     )
     print(format_report(report))
 

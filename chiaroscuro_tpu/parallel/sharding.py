@@ -1,7 +1,7 @@
 """Device-mesh parallel rendering and gradient all-reduce.
 
 The reference's only parallelism is an OpenMP ``parallel for`` over image rows
-on one CPU (``src/rayTracer.cpp:55``).  The TPU-native replacement shards the
+on one CPU (``src/rayTracer.cpp:55``).  The replacement here shards the
 **pixel grid** over a ``jax.sharding.Mesh`` with ``shard_map``: each device
 renders its own row-tile; the counter-based PRNG (``sampling/prng.py``) keys
 every sample on the *global* pixel index, so the assembled frame is bitwise
@@ -10,8 +10,8 @@ identical for any device count — the BASELINE.json reproducibility contract.
 For differentiable rendering, ``sharded_value_and_grad`` runs the loss on each
 device's tile and ``psum``s the scene-parameter gradients across the mesh —
 the renderer analog of data-parallel gradient all-reduce (scene params are
-replicated; rays are the "batch").  XLA schedules the psum on ICI and overlaps
-it with remaining backward work.
+replicated; rays are the "batch").  XLA hands the psum to NCCL, over NVLink
+between the cards of one host.
 """
 
 from __future__ import annotations
@@ -119,7 +119,7 @@ def sharded_value_and_grad(
         def step(diff_params, scene, px, py):
             loss, grads = jax.value_and_grad(tile_loss)(diff_params, scene, px, py)
             loss = jax.lax.psum(loss, axis)
-            grads = jax.lax.psum(grads, axis)  # gradient all-reduce over ICI
+            grads = jax.lax.psum(grads, axis)  # gradient all-reduce
             return loss, grads
 
         def run(scene: SceneArrays, px, py):

@@ -7,7 +7,8 @@ ambient/diffuse/specular from **one** light — the first point light, or a
 white light at the scene's VP when there are none (``openglPreview.cpp:82-86``,
 ``shader/material.fs:24-43``).
 
-A TPU host has no GL stack, so the walk-through frame is produced by the same
+A headless accelerator host has no GL stack, so the walk-through frame is
+produced by the same
 machinery as the path tracer: one primary-visibility closest-hit wavefront
 (no bounces, no NEE, no RNG), shaded per the shaders above.  This is *much*
 faster than a path-traced layer — the point of the raster mode — and runs on

@@ -1,7 +1,7 @@
 """Interactive progressive preview — analog of the reference's OpenGL preview.
 
 The reference opens a GLFW window with a fly camera (``src/openglPreview.cpp``).
-Headless TPU hosts have no GL stack, so the TPU-native preview is a matplotlib
+Headless accelerator hosts have no GL stack, so the preview is a matplotlib
 window wired to the same input state machine (``preview/state.py``):
 
     r          render one progressive layer from the current camera and show

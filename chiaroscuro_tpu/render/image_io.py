@@ -267,7 +267,13 @@ def write_image(path: str, pixels: np.ndarray, exposure: float = 5.0) -> None:
     elif ext == ".hdr":
         write_hdr(path, pixels)
     else:
-        from PIL import Image
+        try:
+            from PIL import Image
+        except ImportError as e:
+            raise ImportError(
+                f"writing {ext or 'extension-less'} images needs Pillow, "
+                "which is not installed; write .exr or .hdr instead"
+            ) from e
 
         ldr = normalize_image(np.asarray(pixels), exposure)
         Image.fromarray(ldr, "RGB").save(path)

@@ -1,8 +1,8 @@
 """Wavefront path-tracing integrator.
 
 The reference integrates with per-pixel recursion + Russian-roulette early
-``return`` (``src/rayTracer.cpp:76-135``).  On TPU, data-dependent recursion
-does not exist under ``jit``; instead we run a **wavefront**: all rays advance
+``return`` (``src/rayTracer.cpp:76-135``).  Under ``jit``, data-dependent
+recursion does not exist; instead we run a **wavefront**: all rays advance
 through a ``lax.scan`` over bounce index with an active mask, and terminated
 lanes simply stop contributing.  The estimator is mathematically identical —
 NEE + cosine-BSDF sampling + RR become masked updates of (throughput, L).
@@ -27,12 +27,10 @@ Reference semantics preserved exactly (required for allclose parity):
   (``rayTracer.cpp:150-151``).
 
 Intersectors are injected (``closest_fn``, ``any_fn``) so the same integrator
-drives the brute-force oracle, the BVH traversal, and the Pallas kernels.
+drives the brute-force oracle, the BVH traversal, and the cluster kernel.
 """
 
 from __future__ import annotations
-
-import os
 
 import jax
 import jax.numpy as jnp
@@ -57,28 +55,21 @@ from chiaroscuro_tpu.scene.scene_arrays import (
 EPS_OFFSET = np.float32(1.0e-3)  # rayTracer.cpp:104,130
 
 # Bounce-compaction segment width in lanes (see trace_paths_planar): live
-# lanes pack to the front of each segment between bounces.  Must be a
-# multiple of 1024 (the dense kernels' 8-row tile) so freed rows align with
-# skippable tiles.  Tuned on v5e/nanosuit (tools/_tpu_compact_bench.py).
+# lanes pack to the front of each segment between bounces.
 COMPACT_SEG_LANES = 4096
 
 # Move compaction/shadow-sort state with a (key, index)-sort + ONE stacked
 # (16, R) gather instead of a 17-operand variadic payload sort.  Bitwise-
-# identical output either way (both apply the same stable permutation).
-# Measured on the 480k atrium @ 720p (v5e): payload sort 3.09 s/frame +
-# 155 s compile; per-array gathers 3.85 s + 40 s; stacked gather
-# 2.95 s + 39 s — the contiguous (16, 1) columns amortize the gather to
-# 64 B/index AND skip the variadic-sort lowering that dominates compile
-# (docs/ROOFLINE.md compaction section).  Env escape hatch for A/B.
-_COMPACT_VIA_GATHER = os.environ.get(
-    "CHIAROSCURO_COMPACT_GATHER", "1"
-) not in ("0", "", "false")
+# identical output either way (both apply the same stable permutation);
+# the stacked gather moves contiguous (16, 1) columns and avoids the
+# variadic-sort lowering, which is slow to compile.  Tests flip it to
+# check both branches.
+_COMPACT_VIA_GATHER = True
 
 # Per-axis |direction|-share bits in the spatial bounce-sort key: 2 -> 4x4
-# angular bins inside each octant (the r4 sweep's winner on the 480k
-# atrium); raise for tighter bounce-row cones at the cost of more scattered
-# origin-cell runs.  Ordering-only metadata — any value is correct.
-_DIR_BITS = int(os.environ.get("CHIAROSCURO_DIR_BITS", "2"))
+# angular bins inside each octant.  Ordering-only metadata — any value is
+# correct; it must stay below 7, where the 32-bit key would overflow.
+_DIR_BITS = 2
 
 
 def _dot(a, b):
@@ -222,18 +213,17 @@ def trace_paths_planar(
     along); the ratio stats/issued is the SIMD occupancy of the wavefront.
 
     All per-ray state is kept **2-D over the ray axis** — scalars as
-    (B0, 128), vec3 as planar (3, B0, 128) — for full (8, 128)-tile
-    utilization on the TPU VPU (see geometry/planar.py).  Planar-native
-    intersectors (``.planar_fn``) are called with zero relayouts; row-major
-    ones get explicit conversions at the call boundary.
+    (B0, 128), vec3 as planar (3, B0, 128) (see geometry/planar.py).
+    Planar-native intersectors (``.planar_fn``) are called with zero
+    relayouts; row-major ones get explicit conversions at the call
+    boundary.
 
     ``compact=True`` enables **bounce-ray compaction** (the wavefront
     equivalent of the reference's recursion simply returning,
     ``rayTracer.cpp:124-131``): at each bounce entry, live lanes are
     stable-sorted to the front of their COMPACT_SEG_LANES-lane segment and
-    dead lanes to its tail, so whole 128-lane rows of dead rays become
-    contiguous and cost trip=0 in the cluster cull / get skipped by the
-    dense kernels' ``live``-row hint.  All per-lane state (keys, throughput,
+    dead lanes to its tail, so whole rows of dead rays become contiguous
+    and cost trip=0 in the cluster cull.  All per-lane state (keys, throughput,
     accumulated radiance, the lane -> original-pixel permutation) rides the
     sort as payloads; radiance is sorted back to pixel order at the end.
     Every per-lane float op is unchanged, reductions are permutation-safe
@@ -246,28 +236,19 @@ def trace_paths_planar(
     keyed on (dead, direction octant, origin morton cell).  The cluster
     cull quantizes divergence to 128-lane rows (the union of all lanes'
     box hits); unsorted bounce rays in an enclosed scene make every row
-    touch nearly every box (measured on the 480k-tri atrium: p50 = 181 of
-    235 superclusters per bounce row, 100% overflow to the full-K sweep —
-    docs/ROOFLINE.md sponza section), while octant+cell-sorted rows stay
-    tight.  The key is ordering-only metadata, so radiance remains bitwise
-    identical — same payload-sort machinery, different key.
+    touch nearly every box, while octant+cell-sorted rows stay tight.  The
+    key is ordering-only metadata, so radiance remains bitwise identical —
+    same permutation machinery, different key.
 
-    Implementation notes (measured on v5e, 1M-lane wavefront):
-    - the state movement must be ONE ``lax.sort`` with the state as
-      payloads (~0.3 ms).  The natural cumsum-rank + scatter + per-array
-      gather formulation costs ~70 ms/bounce in situ — XLA lowers those
-      gathers inside the nested sample/bounce scans to per-element generic
-      gathers;
-    - without a spatial key, packing must be segment-LOCAL: globally
-      packing by liveness alone mixes rays from across the image into each
-      surviving row and the per-row cluster cull lists blow past Lmax
-      (measured 2x whole-frame regression on nanosuit).  The spatial key
-      is what makes a global sort *help* instead.
+    Without a spatial key, packing is segment-LOCAL: globally packing by
+    liveness alone mixes rays from across the image into each surviving
+    row and the per-row cull lists grow.  The spatial key is what makes a
+    global sort help instead.
 
-    Net effect is scene-dependent: wins where dead rows free real work
-    (cluster visits, dense-tile skips), costs ~0.3 ms/bounce always.  The
-    renderer enables it only for intersectors that declare
-    ``prefers_compaction`` (the cluster path).
+    The net effect is scene-dependent: it wins where dead rows free real
+    work (cluster visits) and costs a sort per bounce always.  The renderer
+    enables it only for intersectors that declare ``prefers_compaction``
+    (the cluster path at large K).
     """
     B = k0.shape
     R_flat = B[0] * B[1]
@@ -280,7 +261,7 @@ def trace_paths_planar(
     )
     if spatial_sort and scene.n_lights > 1024:
         # _sorted_any's sort key carries the light id in 10 bits; beyond
-        # 1024 lights ids alias and the 15.6x shadow-sort win degrades
+        # 1024 lights ids alias and the shadow-sort win degrades
         # (correctness holds — the key is ordering-only metadata).
         import warnings
 
@@ -332,11 +313,9 @@ def trace_paths_planar(
 
         Rays sharing a row after this sort share a tight (direction cone,
         cell) bundle.  The angular bins matter as much as the cell: with
-        octant-only granularity a row's 128 cosine-sampled bounce rays span
-        a quarter-space and the per-row cull union covers most of the scene
-        (measured on the 480k atrium: 97% of sorted bounce rows still
-        overflowed to full-K sweeps; with the 4x4 bins candidate visits
-        drop 26.2M -> 1.7M and overflow to 1.4% — docs/ROOFLINE.md)."""
+        octant-only granularity a row's cosine-sampled bounce rays span a
+        quarter-space and the per-row cull union covers most of the
+        scene."""
         dead = (~active).astype(jnp.int32)
         octant = (
             (direction[0] < 0).astype(jnp.int32)
@@ -364,10 +343,8 @@ def trace_paths_planar(
         row grouping (rows only set the *candidate* cluster superset), so
         radiance stays bitwise identical.  The point: NEE picks a light per
         LANE, so pixel-order rows mix up to 128 light targets and their
-        per-row cull union covers most of the scene (measured on the 480k
-        atrium: 100% of shadow rows overflowed to full-K sweeps, 22.7 s per
-        query).  Sorted by (light, cell), rows share one target and a tight
-        origin bundle: overflow 6.4%, 1.45 s — 15.6x (docs/ROOFLINE.md)."""
+        per-row cull union covers most of the scene.  Sorted by (light,
+        cell), rows share one target and a tight origin bundle."""
         key = (
             ((~hit).astype(jnp.int32) << 26)
             | (jnp.minimum(li, 1023) << 16)     # sort key only: clamp is
@@ -415,7 +392,7 @@ def trace_paths_planar(
     bg = background[:, None, None]  # (3, 1, 1)
     textured = scene.tex_data.shape[0] > 1
 
-    # Planar-native intersectors (Pallas) avoid the (R, 3) <-> (3, B0, 128)
+    # Planar-native intersectors (cluster) avoid the (R, 3) <-> (3, B0, 128)
     # relayout at every kernel boundary; row-major intersectors (brute-force
     # oracle, BVH) are wrapped with explicit conversions below.
     closest_planar = getattr(closest_fn, "planar_fn", None)
@@ -423,8 +400,8 @@ def trace_paths_planar(
 
     if n_lights > 0:
         # Compact per-light table, derived *inside the traced graph* (so
-        # gradients flow from NEE into ke and vertex positions).  Fetched
-        # per-ray with a one-hot matmul on the MXU for small L.
+        # gradients flow from NEE into ke and vertex positions), gathered
+        # per ray by the sampled light index.
         lids = scene.light_ids
         light_table_t = jnp.concatenate(
             [
@@ -458,11 +435,8 @@ def trace_paths_planar(
                 # Sort only (key, source-index); move the 16 state arrays
                 # with ONE stacked gather.  Each element moves once instead
                 # of riding every compare-exchange pass of a 17-operand
-                # variadic sort — the sort *lowering* (not just its
-                # runtime) is what costs O(100 s) of XLA compile inside the
-                # remat'd sample scan — and stacking makes the gather move
-                # contiguous (16, 1) columns (64 B/index) instead of 16
-                # scattered 4 B reads (ROOFLINE.md compaction section).
+                # variadic sort, and stacking makes the gather move
+                # contiguous (16, 1) columns instead of 16 scattered reads.
                 iota = jnp.broadcast_to(
                     jnp.arange(seg, dtype=jnp.int32)[None], (n_seg, seg)
                 )
@@ -519,19 +493,11 @@ def trace_paths_planar(
                 active, ck0, ck1, perm = outs[12:16]
 
         # Closest-hit + hit resolution (rayTracer.cpp:148-166).  Planar-native
-        # intersectors (Pallas) return everything already in (.., B0, 128)
-        # layout with shading attributes pre-fetched in-kernel; row-major
+        # intersectors return everything already in (.., B0, 128) layout
+        # with shading attributes gathered by the intersector; row-major
         # intersectors get explicit conversions at the boundary.
-        # Row-liveness hints ((B0, 1) i32: any lane of the row consumed) let
-        # the dense Pallas kernels skip whole tiles of parked rows — with
-        # compaction the dead suffix is contiguous, so most dead tiles skip.
-        live_rows = jnp.any(active, axis=1, keepdims=True).astype(jnp.int32)
-
         if closest_planar is not None:
-            if getattr(closest_fn, "accepts_live", False):
-                res = closest_planar(origin, direction, live=live_rows)
-            else:
-                res = closest_planar(origin, direction)
+            res = closest_planar(origin, direction)
             hit = res.hit & active
             bu, bv = res.u, res.v
             A = res.attrs
@@ -652,16 +618,7 @@ def trace_paths_planar(
                 n_lights - 1,
             )                                              # (B0, 128)
             ltid = scene.light_ids[li]
-            if n_lights <= 512:
-                onehot = (
-                    jnp.arange(n_lights, dtype=jnp.int32)[:, None]
-                    == li.reshape(-1)[None, :]
-                ).astype(jnp.float32)                      # (L, Rp)
-                lrow = jnp.dot(
-                    light_table_t, onehot, preferred_element_type=jnp.float32
-                )                                          # (16, Rp)
-            else:
-                lrow = light_table_t[:, li.reshape(-1)]
+            lrow = light_table_t[:, li.reshape(-1)]         # (16, Rp)
             lrow = lrow.reshape((16,) + B)
             lv0 = lrow[0:3]
             lv1 = lrow[3:6]
@@ -688,13 +645,6 @@ def trace_paths_planar(
                 if spatial_sort:
                     occluded = _sorted_any(
                         nee_origin, wl_q, dist, ltid, li, hit
-                    )
-                elif getattr(any_fn, "accepts_live", False):
-                    shadow_live = jnp.any(
-                        hit, axis=1, keepdims=True
-                    ).astype(jnp.int32)
-                    occluded = any_planar(
-                        nee_origin, wl_q, dist, ltid, live=shadow_live
                     )
                 else:
                     occluded = any_planar(nee_origin, wl_q, dist, ltid)
@@ -728,15 +678,7 @@ def trace_paths_planar(
             no_excl = jnp.full(B, -1, jnp.int32)
             pwl_q = P.pwhere(hit, pwl, park_d)
             if any_planar is not None:
-                if getattr(any_fn, "accepts_live", False):
-                    pl_live = jnp.any(
-                        hit, axis=1, keepdims=True
-                    ).astype(jnp.int32)
-                    pocc = any_planar(
-                        nee_origin, pwl_q, pdist, no_excl, live=pl_live
-                    )
-                else:
-                    pocc = any_planar(nee_origin, pwl_q, pdist, no_excl)
+                pocc = any_planar(nee_origin, pwl_q, pdist, no_excl)
             else:
                 pocc = r2(
                     any_fn(
@@ -810,8 +752,7 @@ def trace_paths_planar(
         # fully-dead 128-lane rows then cost trip=0 instead of re-tracing
         # stale rays.  Correctness is unaffected: every radiance/throughput
         # update is masked on `active`, so intersector outputs for parked
-        # lanes are never consumed.  Measured on nanosuit 1024x1024 depth=3
-        # (occupancy 20%): see docs/ROOFLINE.md.
+        # lanes are never consumed.
         origin = P.pwhere(new_active, point + EPS_OFFSET * normal, park_o)
         direction = P.pwhere(new_active, wi, park_d)
 

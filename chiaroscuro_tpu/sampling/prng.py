@@ -12,7 +12,7 @@ same core as ``jax.random``) evaluated over *global* counters:
 Because every random number is a pure function of (seed, global pixel index,
 sample index, bounce index) — never of the device/shard that computes it —
 renders are **bitwise identical for any sharding of the pixel grid** and for
-any chunking of samples.  This is the TPU-native reproducibility contract
+any chunking of samples.  This is the reproducibility contract
 from BASELINE.json ("bitwise reproducible per shard").
 
 The generator is implemented here (20-round Threefry-2x32) rather than via

@@ -133,7 +133,7 @@ def sample_wi_diffuse(n: jnp.ndarray, u: jnp.ndarray, v: jnp.ndarray):
 
 
 # ---------------------------------------------------------------------------
-# Planar (3, R) variants — the TPU-hot forms (see geometry/planar.py).
+# Planar (3, R) variants — the forms the integrator uses (geometry/planar.py).
 # Same math as the row-major versions above, verified equivalent in tests.
 # ---------------------------------------------------------------------------
 

@@ -71,11 +71,11 @@ class RenderConfig:
     samples: int = 100
     exposure: float = 5.0
 
-    # --- TPU-framework extensions (not in the reference) -------------------
+    # --- extensions (not in the reference) -----------------------------------
     seed: int = 0                    # base PRNG seed (counter-based streams)
-    intersector: str = "auto"        # "brute" | "bvh" | "pallas" | "auto"
+    intersector: str = "auto"        # "auto" | "brute" | "bvh" | "cluster" | "dense"
     spp_chunk: int = 0               # render samples in chunks of this size (0 = all at once)
-    platform: str = ""               # force a jax platform ("cpu"/"tpu"; "" = default)
+    platform: str = ""               # force a jax platform ("cpu"/"gpu"; "" = default)
     enable_specular: bool = False    # Phong specular extension (off = reference parity)
     profile: bool = False            # print a measured per-phase breakdown after rendering
     use_point_lights: bool = True    # shade legacy `L` point lights in the integrator

@@ -275,7 +275,12 @@ def load_texture(path: str) -> np.ndarray:
     Top-left origin, matching stb_image as used by the reference
     (``src/model.cpp:125``, ``src/mesh.cpp:21-35``).
     """
-    from PIL import Image
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise ImportError(
+            f"loading texture {path} needs Pillow, which is not installed"
+        ) from e
 
     img = Image.open(path).convert("RGB")
     return np.asarray(img, dtype=np.float32) / 255.0

@@ -6,7 +6,7 @@ structure-of-arrays tensors.  This pytree IS the differentiable parameter set:
 pixel losses backpropagate into vertex positions (``tri_v0/v1/v2``), material
 colors (``kd``, ``ke``) and texture texels (``tex_data``).
 
-Design notes (TPU-first):
+Design notes:
 - All hot lookups are gathers from flat arrays indexed by triangle id —
   XLA-native, fusable, and differentiable — instead of virtual dispatch over
   heap BRDF objects (``src/rayTracer.cpp:159-166``).

@@ -6,9 +6,8 @@ The reference's flagship renders are sponza-class (``renders/sponza_crytek.exr``
 assets themselves were never shipped (SURVEY.md §2 C15).  This module fills
 that gap honestly: a fully procedural atrium — tessellated hall, two
 colonnades, emissive ceiling panels, scattered crates — whose triangle count
-is a parameter, so the HBM-streaming cluster kernels can be exercised and
-benchmarked *at their design point* (packed cluster matrix above the VMEM
-residency budget, ``ops/cluster_pallas.py`` ``RESIDENT_BUDGET_BYTES``).
+is a parameter, so the cluster intersector can be exercised and
+benchmarked at sponza scale.
 
 Everything is plain numpy -> :class:`~chiaroscuro_tpu.scene.obj_loader.Mesh`
 lists, consumed by :func:`~chiaroscuro_tpu.scene.scene_arrays.build_scene_arrays`

@@ -4,11 +4,10 @@ The reference's only instrumentation is a wall-clock print per render
 (``src/rayTracer.cpp:39,72-73``).  Here:
 
 - :class:`PhaseTimer` — wall-clock accumulation per named phase;
-- :func:`trace` — opt-in ``jax.profiler`` trace context for TPU runs;
+- :func:`trace` — opt-in ``jax.profiler`` trace context for device runs;
 - :func:`profile_phases` — a measured per-phase breakdown
   (raygen / closest-hit / shadow / shade+control) of one rendered frame, used
-  by the renderer's ``profile`` mode and the roofline analysis in
-  ``docs/ROOFLINE.md``.
+  by the renderer's ``profile`` mode.
 
 Useful-work accounting (active-ray counts per bounce) lives in the integrator
 itself (``render/integrator.py`` ``with_stats``) because it must be computed

@@ -83,8 +83,8 @@ def test_compile_budget_miss_flagged():
 
 
 def test_compile_time_regression_tracked():
-    """compile_s metrics ride the same vs-best check (the r3 237s sponza
-    compile cliff would have been caught)."""
+    """compile_s metrics ride the same vs-best check, so a compile-time
+    cliff is caught."""
     now = _extra()
     now["nanosuit_cluster"]["compile_s"] = 80.0   # 10x the historical 8s
     f = benchguard.flag_regressions(now, HISTORY, current_round=5)

@@ -1,14 +1,17 @@
 """Cluster (meshlet) intersector vs the brute-force oracle.
 
 The cluster path (``ops/cluster_pallas.py`` + ``accel/clusters.py``) is the
-large-scene TPU intersector — dense AABB cull + compacted per-row Pallas
-visits.  These tests validate, in interpreter mode on CPU:
+large-scene GPU intersector — XLA AABB cull + per-row Triton visit kernel.
+These tests run the kernel in the Pallas interpreter on CPU and validate:
 
 - builder invariants (partition of triangles, bounding boxes bound members);
 - closest/any-hit exactness vs the oracle, including the Lmax-overflow
-  fallback and the lowest-original-id tie-break;
+  residual sweep, ray counts off the ray block, and the lowest-original-id
+  tie-break, for several ray blocks and cluster sizes;
+- that the kernels lower to Triton for CUDA (no card needed to lower);
 - end-to-end render parity with the brute-force integrator;
 - custom-VJP gradient parity.
+tests/test_gpu.py runs the compiled kernel on a card.
 """
 
 import dataclasses
@@ -92,17 +95,17 @@ def test_builder_partitions_triangles(rng):
 
 
 @pytest.mark.parametrize(
-    "lmax,stream",
-    [(4, False), (64, False), (64, True), (4, True)],
+    "lmax,ray_block,M",
+    [(4, 128, 16), (64, 128, 16), (64, 32, 32), (4, 64, 16)],
 )
-def test_cluster_closest_matches_oracle(rng, lmax, stream):
+def test_cluster_closest_matches_oracle(rng, lmax, ray_block, M):
     """lmax=4 forces frequent overflow (phase-2 residual sweeps); lmax=64
-    makes every row fit its compacted list; stream=True forces the
-    HBM-streaming double-buffered-DMA kernel.  All must be exact."""
+    makes every row fit its candidate list; smaller ray blocks give each
+    kernel program fewer rays and a tighter list.  All must be exact."""
     v0, v1, v2 = _random_soup(rng, 300)
     scene = _soup_scene(v0, v1, v2)
     cf, _ = make_cluster_intersectors(
-        scene, M=16, Lmax=lmax, interpret=True, stream=stream,
+        scene, M=M, Lmax=lmax, interpret=True, ray_block=ray_block,
     )
     o, d = _rays(rng, 300, np.float32(-4.4), np.float32(4.4))
     ph, pt, ptid, pu, pv = cf(o, d)[:5]
@@ -127,12 +130,12 @@ def test_cluster_closest_matches_oracle(rng, lmax, stream):
     )
 
 
-@pytest.mark.parametrize("stream", [False, True])
-def test_cluster_any_matches_oracle(rng, stream):
+@pytest.mark.parametrize("ray_block", [128, 32])
+def test_cluster_any_matches_oracle(rng, ray_block):
     v0, v1, v2 = _random_soup(rng, 300)
     scene = _soup_scene(v0, v1, v2)
     _, af = make_cluster_intersectors(
-        scene, M=16, Lmax=8, interpret=True, stream=stream
+        scene, M=16, Lmax=8, interpret=True, ray_block=ray_block
     )
     o, d = _rays(rng, 300, np.float32(-4.4), np.float32(4.4))
     tmax = jnp.asarray(rng.uniform(0.5, 10.0, (300,)), jnp.float32)
@@ -291,53 +294,6 @@ def test_cluster_grads_under_jit_scan_match_oracle(cornell_scene):
             np.asarray(gc[k]), np.asarray(gb[k]), rtol=1e-4, atol=1e-7)
 
 
-def test_cull_kernel_matches_xla_cull(cornell_scene, rng):
-    """The (experimental, tools/-resident) Pallas cull kernel must find the
-    same per-row hit sets as the XLA reference formulation, with and
-    without tmax.  The kernel predates the near-ordered contract, so ids
-    are compared as sets and the XLA path's extra nears output is checked
-    for order only."""
-    import jax.numpy as jnp
-
-    from chiaroscuro_tpu.ops.cluster_pallas import _cull_rows
-    from tools.tpu_cull_experiments import (
-        _cull_rows_kernelized,
-        pack_cull_boxes,
-    )
-
-    scene = cornell_scene
-    ca = build_clusters(
-        np.asarray(scene.tri_v0), np.asarray(scene.tri_v1),
-        np.asarray(scene.tri_v2), M=8)   # small M -> several clusters
-    boxes = jnp.asarray(pack_cull_boxes(ca.bbox_min, ca.bbox_max))
-    bmin, bmax = jnp.asarray(ca.bbox_min), jnp.asarray(ca.bbox_max)
-
-    lo, hi = np.asarray(scene.world_min), np.asarray(scene.world_max)
-    n = 16 * 128
-    o = rng.uniform(lo - 0.3 * (hi - lo), hi + 0.3 * (hi - lo), (n, 3))
-    d = rng.normal(size=(n, 3))
-    o3 = jnp.asarray(o.T.reshape(3, -1, 128), jnp.float32)
-    d3 = jnp.asarray(d.T.reshape(3, -1, 128), jnp.float32)
-    tmax = jnp.asarray(
-        rng.uniform(0.1, 3.0, (n,)).reshape(-1, 128), jnp.float32)
-
-    for tm in (None, tmax):
-        meta_ref, ids_ref, nears_ref, _cut = _cull_rows(
-            o3, d3, bmin, bmax, 128, tmax=tm)
-        meta_k, ids_k = _cull_rows_kernelized(
-            o3, d3, boxes, ca.K, 128, interpret=True, tmax=tm)
-        meta_ref, ids_ref, nears_ref, meta_k, ids_k = map(
-            np.asarray, (meta_ref, ids_ref, nears_ref, meta_k, ids_k))
-        np.testing.assert_array_equal(meta_ref, meta_k)
-        for b in range(meta_ref.shape[0]):
-            trip = meta_ref[b, 0]
-            if meta_ref[b, 1]:
-                continue  # overflow: both sweep all K in identity order
-            np.testing.assert_array_equal(
-                np.sort(ids_ref[b, :trip]), np.sort(ids_k[b, :trip]))
-            assert (np.diff(nears_ref[b, :trip]) >= 0).all()
-
-
 def test_bind_buffers_matches_bind_scene(rng):
     """The pass-buffers-as-jit-arguments path (derive_buffers +
     bind_buffers, used by multi-frame renderers/benches) must agree with
@@ -382,72 +338,15 @@ def test_bind_buffers_matches_bind_scene(rng):
     np.testing.assert_array_equal(np.asarray(occ_b), np.asarray(occ))
 
 
-@pytest.mark.parametrize("stream", [False, True])
-def test_transposed_visit_equivalent(rng, stream):
-    """visit_t=True (rays on sublanes, triangles on lanes) performs the
-    identical scalar ops per (triangle, lane) pair; results may differ
-    from the default layout only through compiler FMA-contraction choices
-    (measured: t/tid bitwise, v at ~1 ulp on CPU) — so the contract is the
-    oracle-style one: exact hit sets, 1e-6-tight continuous outputs,
-    ids equal off ties.  Covers overflow rows too (small Lmax)."""
-    v0, v1, v2 = _random_soup(rng, 300)
-    scene = _soup_scene(v0, v1, v2)
-    o, d = _rays(rng, 256, np.float32(-4.4), np.float32(4.4))
-    outs = {}
-    for T in (False, True):
-        cf, af = make_cluster_intersectors(
-            scene, M=16, Lmax=4, interpret=True, stream=stream, visit_t=T,
-        )
-        res = cf(o, d)
-        occ = af(o, d, jnp.where(res.hit, res.t * 1.1, 1e9),
-                 jnp.full((256,), -1, jnp.int32))
-        outs[T] = (res, occ)
-    a, b = outs[False], outs[True]
-    np.testing.assert_array_equal(np.asarray(a[0].hit), np.asarray(b[0].hit))
-    hit = np.asarray(a[0].hit)
-    np.testing.assert_allclose(
-        np.asarray(a[0].t)[hit], np.asarray(b[0].t)[hit], rtol=1e-6)
-    same = np.asarray(a[0].tid)[hit] == np.asarray(b[0].tid)[hit]
-    ties = np.isclose(
-        np.asarray(a[0].t)[hit], np.asarray(b[0].t)[hit], rtol=1e-6)
-    assert (same | ties).all()
-    for f in ("u", "v"):
-        np.testing.assert_allclose(
-            np.asarray(getattr(a[0], f))[hit][same],
-            np.asarray(getattr(b[0], f))[hit][same], rtol=1e-5, atol=1e-6,
-            err_msg=f)
-    for k in a[0].attrs:
-        av = np.asarray(a[0].attrs[k])
-        bv = np.asarray(b[0].attrs[k])
-        sel = hit if av.ndim == 1 else hit[:, None]
-        if av.dtype.kind == "i":
-            assert ((av == bv) | ~np.broadcast_to(sel, av.shape)).all(), k
-        else:
-            np.testing.assert_allclose(
-                np.where(sel, av, 0), np.where(sel, bv, 0),
-                rtol=1e-5, atol=1e-6, err_msg=k)
-    np.testing.assert_array_equal(np.asarray(a[1]), np.asarray(b[1]))
+def _run(scene, o, d, **kw):
+    cf, af = make_cluster_intersectors(scene, interpret=True, **kw)
+    res = cf(o, d)
+    occ = af(o, d, jnp.where(res.hit, res.t * 1.1, 1e9),
+             jnp.full((o.shape[0],), -1, jnp.int32))
+    return res, occ
 
 
-@pytest.mark.parametrize("stream,U", [(False, 4), (True, 2), (True, 4)])
-def test_visit_unroll_bitwise_identical(rng, stream, U):
-    """The U-unrolled visit loop pads each row's trip to a multiple of U
-    with clamped repeat visits — idempotent under the closest merge and
-    the occlusion OR — so results must be bitwise identical to U=1.
-    Small Lmax exercises the unrolled phase-2 residual sweep too."""
-    v0, v1, v2 = _random_soup(rng, 300)
-    scene = _soup_scene(v0, v1, v2)
-    o, d = _rays(rng, 256, np.float32(-4.4), np.float32(4.4))
-    outs = {}
-    for u_ in (1, U):
-        cf, af = make_cluster_intersectors(
-            scene, M=16, Lmax=4, interpret=True, stream=stream, visit_u=u_,
-        )
-        res = cf(o, d)
-        occ = af(o, d, jnp.where(res.hit, res.t * 1.1, 1e9),
-                 jnp.full((256,), -1, jnp.int32))
-        outs[u_] = (res, occ)
-    a, b = outs[1], outs[U]
+def _assert_bitwise(a, b):
     for f in ("hit", "t", "tid", "u", "v"):
         np.testing.assert_array_equal(
             np.asarray(getattr(a[0], f)), np.asarray(getattr(b[0], f)),
@@ -458,15 +357,42 @@ def test_visit_unroll_bitwise_identical(rng, stream, U):
     np.testing.assert_array_equal(np.asarray(a[1]), np.asarray(b[1]))
 
 
+@pytest.mark.parametrize("ray_block", [32, 64])
+def test_transposed_visit_equivalent(rng, ray_block):
+    """The ray block sets which rays share a candidate list and a kernel
+    program, never what a ray computes: each (ray, triangle) pair runs the
+    same float ops and the (t, original id) minimum does not depend on
+    visit order, so results are bitwise equal to the 128-ray block.  Small
+    Lmax covers overflow rows too."""
+    v0, v1, v2 = _random_soup(rng, 300)
+    scene = _soup_scene(v0, v1, v2)
+    o, d = _rays(rng, 256, np.float32(-4.4), np.float32(4.4))
+    _assert_bitwise(_run(scene, o, d, M=16, Lmax=4),
+                    _run(scene, o, d, M=16, Lmax=4, ray_block=ray_block))
+
+
+@pytest.mark.parametrize("M", [32, 48, 64])
+def test_visit_unroll_bitwise_identical(rng, M):
+    """Cluster size M changes the meshlets (boxes, lists, visit order) but
+    not the per-(ray, triangle) arithmetic or the lexicographic (t, id)
+    minimum: results must be bitwise identical to M=16.  Small Lmax
+    exercises the phase-2 residual sweep too."""
+    v0, v1, v2 = _random_soup(rng, 300)
+    scene = _soup_scene(v0, v1, v2)
+    o, d = _rays(rng, 256, np.float32(-4.4), np.float32(4.4))
+    _assert_bitwise(_run(scene, o, d, M=16, Lmax=4),
+                    _run(scene, o, d, M=M, Lmax=4))
+
+
 def test_beam_cull_conservative_and_exact(rng):
-    """The beam cull's per-row hit mask must be a SUPERSET of the per-lane
-    mask with valid entry lower bounds, and the end-to-end intersector
-    built on it must match the per-lane one exactly (visit lists differ,
-    results cannot)."""
+    """The cull's per-row hit mask is a superset of every ray's own box
+    hits, its entry bounds lower-bound every ray's own entry distance, and
+    the dense sweep (no cull: every row visits all K clusters) matches the
+    culled intersector bitwise."""
+    from chiaroscuro_tpu.accel.clusters import build_clusters
     from chiaroscuro_tpu.ops.cluster_pallas import (
-        _cull_rows, _rowhit_beam, _rowhit_scan, _safe_inv,
+        _rows_to_planar, _rowhit_scan, _safe_inv,
     )
-    from chiaroscuro_tpu.ops.intersect_pallas import _rows_to_planar
 
     v0, v1, v2 = _random_soup(rng, 300)
     scene = _soup_scene(v0, v1, v2)
@@ -474,29 +400,96 @@ def test_beam_cull_conservative_and_exact(rng):
     o, d = _rays(rng, 256, np.float32(-4.4), np.float32(4.4))
     o3, _ = _rows_to_planar(o)
     d3, _ = _rows_to_planar(d)
+    row_hit, row_entry = map(np.asarray, _rowhit_scan(
+        o3, _safe_inv(d3), ca.bbox_min, ca.bbox_max))
+    # Per-ray reference: rows of one ray each.
+    ray_hit, ray_entry = map(np.asarray, _rowhit_scan(
+        o3.reshape(3, -1, 1), _safe_inv(d3.reshape(3, -1, 1)),
+        ca.bbox_min, ca.bbox_max))
+    ray_hit = ray_hit.reshape(-1, 128, ca.K)
+    ray_entry = ray_entry.reshape(-1, 128, ca.K)
+    assert (row_hit | ~ray_hit.any(axis=1)).all()        # superset
+    assert (row_entry[:, None, :] <= ray_entry + 1e-6)[ray_hit].all()
+    _assert_bitwise(_run(scene, o, d, M=16, Lmax=8),
+                    _run(scene, o, d, M=16, Lmax=8, cull=False))
 
-    lane_hit, lane_entry = _rowhit_scan(
-        o3, _safe_inv(d3), ca.bbox_min, ca.bbox_max, None, with_near=True)
-    beam_hit, beam_entry = _rowhit_beam(
-        o3, d3, jnp.asarray(ca.bbox_min), jnp.asarray(ca.bbox_max))
-    lane_hit, lane_entry, beam_hit, beam_entry = map(
-        np.asarray, (lane_hit, lane_entry, beam_hit, beam_entry))
-    assert (beam_hit | ~lane_hit).all()          # superset
-    both = lane_hit & beam_hit
-    assert (beam_entry[both] <= lane_entry[both] + 1e-5).all()  # lower bound
 
-    # End-to-end: beam-culled intersectors == per-lane intersectors.
-    outs = {}
-    for b in (False, True):
-        cf, af = make_cluster_intersectors(
-            scene, M=16, Lmax=8, interpret=True, beam=b)
-        res = cf(o, d)
-        occ = af(o, d, jnp.where(res.hit, res.t * 1.1, 1e9),
-                 jnp.full((256,), -1, jnp.int32))
-        outs[b] = (res, occ)
-    a, bb = outs[False], outs[True]
-    for f in ("hit", "t", "tid", "u", "v"):
-        np.testing.assert_array_equal(
-            np.asarray(getattr(a[0], f)), np.asarray(getattr(bb[0], f)),
-            err_msg=f)
-    np.testing.assert_array_equal(np.asarray(a[1]), np.asarray(bb[1]))
+def test_overflow_runs_residual_sweep_exactly(rng):
+    """With a candidate list narrower than the rows' box counts, rows
+    overflow: phase 1 walks the Le nearest boxes and the phase-2 residual
+    sweep must still find every exact hit."""
+    from chiaroscuro_tpu.accel.clusters import build_clusters
+    from chiaroscuro_tpu.ops.cluster_pallas import _cull_rows, _rows_to_planar
+
+    v0, v1, v2 = _random_soup(rng, 600, spread=2.0)
+    scene = _soup_scene(v0, v1, v2)
+    ca = build_clusters(v0, v1, v2, M=16)
+    o, d = _rays(rng, 384, np.float32(-2.2), np.float32(2.2))
+    o3, _ = _rows_to_planar(o)
+    d3, _ = _rows_to_planar(d)
+    meta, ids, nears, cutoff = map(np.asarray, _cull_rows(
+        o3, d3, ca.bbox_min, ca.bbox_max, Lmax=2))
+    over = meta[:, 1] == 1
+    assert over.any()
+    assert (meta[over, 0] == 2).all() and np.isfinite(cutoff[over]).all()
+    assert np.isinf(cutoff[~over]).all()
+    assert (np.diff(nears, axis=1) >= 0).all()          # near-ascending
+    res, occ = _run(scene, o, d, clusters=ca, Lmax=2)
+    oh, ot, otid, _, _ = intersect_closest_bruteforce(
+        o, d, scene.tri_v0, scene.tri_v1, scene.tri_v2)
+    np.testing.assert_array_equal(np.asarray(res.hit), np.asarray(oh))
+    hit = np.asarray(oh)
+    np.testing.assert_allclose(np.asarray(res.t)[hit], np.asarray(ot)[hit],
+                               rtol=1e-6)
+    np.testing.assert_array_equal(np.asarray(occ), hit)
+
+
+@pytest.mark.parametrize("n_rays,ray_block", [(300, 32), (1000, 64)])
+def test_ray_counts_off_the_block_pad(rng, n_rays, ray_block):
+    """Ray counts that are not a multiple of 128 (or of the ray block) pad
+    with replicas of ray 0; the padding is sliced off and every real ray
+    matches the oracle."""
+    v0, v1, v2 = _random_soup(rng, 200)
+    scene = _soup_scene(v0, v1, v2)
+    o, d = _rays(rng, n_rays, np.float32(-4.4), np.float32(4.4))
+    res, _ = _run(scene, o, d, M=16, Lmax=8, ray_block=ray_block)
+    assert res.t.shape == (n_rays,) and res.attrs["normal"].shape == (
+        n_rays, 3)
+    oh, ot, otid, _, _ = intersect_closest_bruteforce(
+        o, d, scene.tri_v0, scene.tri_v1, scene.tri_v2)
+    np.testing.assert_array_equal(np.asarray(res.hit), np.asarray(oh))
+    hit = np.asarray(oh)
+    np.testing.assert_array_equal(np.asarray(res.tid)[hit],
+                                  np.asarray(otid)[hit])
+
+
+@pytest.mark.parametrize("cull", [True, False])
+def test_kernels_lower_to_triton_for_cuda(cull):
+    """Both visit kernels lower to Triton IR for a CUDA target — the step
+    that runs in Python and needs no card (compiling that IR to a cubin
+    happens on the card; tests/test_gpu.py covers it)."""
+    from chiaroscuro_tpu.ops import cluster_pallas as cp
+
+    NR, RB, K, M, Le = 16, 128, 8, 32, 8
+    sds = jax.ShapeDtypeStruct
+    lists = (sds((NR, 2), jnp.int32), sds((NR, Le), jnp.int32),
+             sds((NR, Le), jnp.float32), sds((NR, 1), jnp.float32)) \
+        if cull else ()
+    ray = sds((3, NR, RB), jnp.float32)
+    row = sds((NR, RB), jnp.float32)
+    geo = sds((cp.GEO_W, K * M), jnp.float32)
+    checks = [jax.export.DisabledSafetyCheck.custom_call(
+        "__gpu$xla.gpu.triton")]
+
+    def export(f, *args):
+        return jax.export.export(jax.jit(f), platforms=["cuda"],
+                                 disabled_checks=checks)(*args).mlir_module()
+
+    shape = (M, Le, cp.SUB, cp.NUM_WARPS)
+    closest = export(lambda l, o, d, g: cp._closest_call(l, o, d, g, *shape),
+                     lists, ray, ray, geo)
+    any_ = export(
+        lambda l, o, d, t, e, g: cp._any_call(l, o, d, t, e, g, *shape),
+        lists, ray, ray, row, row, geo)
+    for mod in (closest, any_):
+        assert "__gpu$xla.gpu.triton" in mod

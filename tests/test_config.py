@@ -58,7 +58,9 @@ def test_parse_reference_cornell_rtc():
 
 def test_cli_args_override_file():
     cfg = RenderConfig.from_rtc(
-        "/root/reference/cornell.rtc", ["xres", "64", "no-preview"]
+        os.path.join(os.path.dirname(os.path.dirname(__file__)), "scenes",
+                     "cornell.rtc"),
+        ["xres", "64", "no-preview"],
     )
     assert cfg.xres == 64
     assert cfg.yres == 768

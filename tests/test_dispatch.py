@@ -1,8 +1,9 @@
 """Auto-dispatch decision + documented degradation warnings.
 
-VERDICT r4 weak #8/#9: the >2^24-triangle fall-back from the cluster path
-to the lock-step BVH walk and the 1024-light shadow-sort-key clamp were
-silent.  Both now warn; the selection logic is unit-tested here.
+The intersector is chosen from what the code can observe: the platform and
+the scene's triangle count.  The >2^24-triangle fall-back from the cluster
+path to the lock-step BVH walk and the 1024-light shadow-sort-key clamp
+both warn; the selection logic is unit-tested here.
 """
 
 import warnings
@@ -14,28 +15,56 @@ from chiaroscuro_tpu.accel.dispatch import (
     CLUSTER_MAX_TRIS,
     resolve_auto,
 )
+from chiaroscuro_tpu.ops.cluster_pallas import SMALL_M as CLUSTER_M
 
 
 def test_auto_selection_matrix():
     with warnings.catch_warnings():
         warnings.simplefilter("error")  # none of these may warn
-        assert resolve_auto(36, on_tpu=True) == "pallas"
-        assert resolve_auto(36, on_tpu=False) == "brute"
-        assert resolve_auto(19_058, on_tpu=True) == "cluster"
-        assert resolve_auto(19_058, on_tpu=False) == "bvh"
-        assert resolve_auto(CLUSTER_MAX_TRIS - 1, on_tpu=True) == "cluster"
-        assert resolve_auto(AUTO_BVH_THRESHOLD, on_tpu=True) == "pallas"
+        assert resolve_auto(36, "gpu") == "dense"
+        assert resolve_auto(36, "cpu") == "brute"
+        assert resolve_auto(19_058, "gpu") == "cluster"
+        assert resolve_auto(19_058, "cpu") == "bvh"
+        assert resolve_auto(CLUSTER_MAX_TRIS - 1, "gpu") == "cluster"
+        assert resolve_auto(AUTO_BVH_THRESHOLD, "cpu") == "brute"
+
+
+@pytest.mark.parametrize("n_tris,platform,expected", [
+    (1, "gpu", "dense"),
+    (CLUSTER_M, "gpu", "dense"),
+    (CLUSTER_M + 1, "gpu", "cluster"),
+    (480_000, "gpu", "cluster"),
+    (AUTO_BVH_THRESHOLD + 1, "cpu", "bvh"),
+    (CLUSTER_M + 1, "cpu", "brute"),
+    (480_000, "cpu", "bvh"),
+])
+def test_platform_dispatch_matrix(n_tris, platform, expected):
+    """Only the GPU gets the kernel; every other platform keeps the XLA
+    paths (the kernel has no compiled form there)."""
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        assert resolve_auto(n_tris, platform) == expected
 
 
 def test_over_2pow24_degrades_to_bvh_with_warning():
     with pytest.warns(RuntimeWarning, match="2\\^24"):
-        assert resolve_auto(CLUSTER_MAX_TRIS, on_tpu=True) == "bvh"
-    with pytest.warns(RuntimeWarning, match="2000x slower"):
-        assert resolve_auto(CLUSTER_MAX_TRIS + 7, on_tpu=True) == "bvh"
-    # Off-TPU the BVH is the normal large-scene path: no warning.
+        assert resolve_auto(CLUSTER_MAX_TRIS, "gpu") == "bvh"
+    with pytest.warns(RuntimeWarning, match="far slower"):
+        assert resolve_auto(CLUSTER_MAX_TRIS + 7, "gpu") == "bvh"
+    # Off the GPU the BVH is the normal large-scene path: no warning.
     with warnings.catch_warnings():
         warnings.simplefilter("error")
-        assert resolve_auto(CLUSTER_MAX_TRIS + 7, on_tpu=False) == "bvh"
+        assert resolve_auto(CLUSTER_MAX_TRIS + 7, "cpu") == "bvh"
+
+
+@pytest.mark.parametrize("method", ["cluster", "dense"])
+def test_kernel_request_off_gpu_raises(cornell_scene, method):
+    """An explicit kernel request on the CPU fails loudly instead of
+    silently running the interpreter."""
+    from chiaroscuro_tpu.accel import make_intersectors
+
+    with pytest.raises(ValueError, match="GPU only"):
+        make_intersectors(cornell_scene, method)
 
 
 def test_shadow_sort_light_clamp_warns():

@@ -250,17 +250,19 @@ def test_remat_gradients_match_non_remat(setup):
 
 
 def test_bwd_onehot_fetch_matches_gather(cornell_scene):
-    """The one-hot-matmul backward recompute fetch (CHIAROSCURO_BWD_ONEHOT)
-    must produce the same gradients as the gather fetch (each one-hot row
-    sums exactly one 1.0 * value; VJP accumulation order may differ)."""
+    """The kernel path's backward pass fetches the winning triangle's rows
+    with a gather (the one-hot product it replaced could round in TF32 on
+    a GPU).  Its gradients w.r.t. kd, ke and vertex positions must equal
+    the brute-force oracle's."""
     import dataclasses
 
     import jax
     import jax.numpy as jnp
     import numpy as np
 
-    import chiaroscuro_tpu.ops.intersect_pallas as ip
-    from chiaroscuro_tpu.ops.intersect_pallas import make_pallas_intersectors
+    from chiaroscuro_tpu.accel import make_intersectors
+    from chiaroscuro_tpu.accel.clusters import build_clusters
+    from chiaroscuro_tpu.ops.cluster_pallas import make_cluster_intersectors
     from chiaroscuro_tpu.render.renderer import render_samples
     from chiaroscuro_tpu.scene.builtin import CORNELL_CAMERA as cam
 
@@ -269,9 +271,18 @@ def test_bwd_onehot_fetch_matches_gather(cornell_scene):
                          np.arange(16, dtype=np.int32), indexing="ij")
     px, py = jnp.asarray(xs.reshape(-1)), jnp.asarray(ys.reshape(-1))
 
-    def loss(params, scene):
+    # The meshlet build needs concrete geometry: build it once, outside.
+    clusters = build_clusters(np.asarray(scene.tri_v0),
+                              np.asarray(scene.tri_v1),
+                              np.asarray(scene.tri_v2), 16)
+
+    def loss(params, scene, kernel):
         s = dataclasses.replace(scene, **params)
-        cf, af = make_pallas_intersectors(s)
+        if kernel:
+            cf, af = make_cluster_intersectors(
+                s, interpret=True, cull=False, clusters=clusters)
+        else:
+            cf, af = make_intersectors(s, "brute")
         img = render_samples(
             s, jnp.asarray(cam["eye"], jnp.float32),
             jnp.asarray(cam["center"], jnp.float32),
@@ -281,15 +292,9 @@ def test_bwd_onehot_fetch_matches_gather(cornell_scene):
         return jnp.mean(img)
 
     params = {"kd": scene.kd, "ke": scene.ke, "tri_v0": scene.tri_v0}
-    orig = ip._BWD_ONEHOT
-    try:
-        ip._BWD_ONEHOT = False
-        g_gather = jax.grad(loss)(params, scene)
-        ip._BWD_ONEHOT = True
-        g_onehot = jax.grad(loss)(params, scene)
-    finally:
-        ip._BWD_ONEHOT = orig
+    g_gather = jax.grad(loss)(params, scene, True)
+    g_oracle = jax.grad(loss)(params, scene, False)
     for k in params:
         np.testing.assert_allclose(
-            np.asarray(g_onehot[k]), np.asarray(g_gather[k]),
-            rtol=1e-5, atol=1e-8, err_msg=k)
+            np.asarray(g_gather[k]), np.asarray(g_oracle[k]),
+            rtol=2e-3, atol=1e-6, err_msg=k)

@@ -292,7 +292,7 @@ def test_spp_batch_equivalence(cornell_scene):
 def test_compaction_bitwise_identity(cornell_scene):
     """Bounce-ray compaction (integrator ``compact=True``) must be a pure
     lane permutation: per-pixel radiance bitwise-identical to the
-    uncompacted wavefront, on both the brute oracle and the Pallas path.
+    uncompacted wavefront, on both the brute oracle and the kernel path.
 
     ``compact`` is forced through ``render_samples``' own parameter (the
     previous ``partial(trace_paths_planar, compact=...)`` monkeypatch was
@@ -304,8 +304,14 @@ def test_compaction_bitwise_identity(cornell_scene):
         indexing="ij",
     )
     px, py = xs.reshape(-1), ys.reshape(-1)
-    for method in ("brute", "pallas"):
-        cf, af = make_intersectors(cornell_scene, method)
+    from chiaroscuro_tpu.ops.cluster_pallas import make_cluster_intersectors
+
+    for method in ("brute", "kernel"):
+        if method == "kernel":
+            cf, af = make_cluster_intersectors(
+                cornell_scene, M=8, interpret=True)
+        else:
+            cf, af = make_intersectors(cornell_scene, method)
         outs = {}
         for compact in (False, True):
             outs[compact] = np.asarray(
@@ -343,7 +349,7 @@ def test_spatial_sort_bitwise_identity_cluster():
     ys, xs = np.meshgrid(np.arange(yres, dtype=np.int32),
                          np.arange(xres, dtype=np.int32), indexing="ij")
     px, py = xs.reshape(-1), ys.reshape(-1)
-    cf, af = make_intersectors(scene, "cluster")
+    cf, af = cp.make_cluster_intersectors(scene, interpret=True)
 
     def render(compact):
         return np.asarray(
@@ -367,7 +373,7 @@ def test_spatial_sort_bitwise_identity_cluster():
         # intersectors per trace, and _finalize re-reads COMPACT_MIN_K, so
         # the forced preference reaches the post-bind closures too.
         cp.COMPACT_MIN_K = 1
-        cfc, afc = make_intersectors(scene, "cluster")
+        cfc, afc = cp.make_cluster_intersectors(scene, interpret=True)
         assert cfc.prefers_compaction and cfc.prefers_ray_sort
         for gather in (True, False):
             integrator._COMPACT_VIA_GATHER = gather
@@ -385,3 +391,26 @@ def test_spatial_sort_bitwise_identity_cluster():
     finally:
         cp.COMPACT_MIN_K = orig_min_k
         integrator._COMPACT_VIA_GATHER = orig_gather
+
+
+def test_nee_light_gather_matches_onehot_product(cornell_scene):
+    """NEE fetches the sampled light's row with a plain gather.  It must
+    return exactly what the one-hot product it replaced returned at full
+    float32 precision — each one-hot column sums one 1.0 * value."""
+    import jax
+    import jax.numpy as jnp
+
+    scene = cornell_scene
+    lids = scene.light_ids
+    table = jnp.concatenate(
+        [scene.tri_v0[lids], scene.tri_v1[lids], scene.tri_v2[lids],
+         scene.normal[lids], scene.ke[lids], scene.light_areas[:, None]],
+        axis=1,
+    ).T                                                     # (16, L)
+    li = jax.random.randint(jax.random.PRNGKey(3), (8, 128), 0,
+                            scene.n_lights)
+    gathered = table[:, li.reshape(-1)]
+    onehot = (jnp.arange(scene.n_lights)[:, None]
+              == li.reshape(-1)[None, :]).astype(jnp.float32)
+    product = jnp.dot(table, onehot, precision=jax.lax.Precision.HIGHEST)
+    np.testing.assert_array_equal(np.asarray(gathered), np.asarray(product))

@@ -1,8 +1,9 @@
-"""Pallas intersection kernels vs the brute-force oracle.
+"""The Pallas visit kernel as a dense sweep (no cull) vs the oracle.
 
-On non-TPU hosts the kernels run in interpreter mode (`interpret=True`), so
-these tests validate kernel *semantics* everywhere; the TPU-compiled path is
-exercised by bench.py and the TPU smoke script.
+Without the cull every row of rays visits every cluster: the kernel is
+then a brute-force sweep over the scene, here the 36-triangle cornell box.
+The kernel runs in the Pallas interpreter on CPU; tests/test_gpu.py and
+chip_smoke.py run it compiled on a card.
 """
 
 import jax.numpy as jnp
@@ -13,7 +14,7 @@ from chiaroscuro_tpu.geometry.intersect import (
     intersect_any_bruteforce,
     intersect_closest_bruteforce,
 )
-from chiaroscuro_tpu.ops.intersect_pallas import make_pallas_intersectors
+from chiaroscuro_tpu.ops.cluster_pallas import make_cluster_intersectors
 from chiaroscuro_tpu.scene.builtin import cornell_box
 from chiaroscuro_tpu.scene.scene_arrays import build_scene_arrays
 
@@ -21,7 +22,8 @@ from chiaroscuro_tpu.scene.scene_arrays import build_scene_arrays
 @pytest.fixture(scope="module")
 def setup(rng=None):
     scene = build_scene_arrays(cornell_box())
-    closest_fn, any_fn = make_pallas_intersectors(scene)
+    closest_fn, any_fn = make_cluster_intersectors(
+        scene, interpret=True, cull=False)
     return scene, closest_fn, any_fn
 
 
@@ -35,7 +37,7 @@ def _rays(scene, rng, n):
 
 def test_pallas_closest_matches_oracle(setup, rng):
     scene, closest_fn, _ = setup
-    o, d = _rays(scene, rng, 300)  # non-multiple of RAY_TILE: tests padding
+    o, d = _rays(scene, rng, 300)  # non-multiple of 128: tests padding
     ph, pt, ptid, pu, pv = closest_fn(o, d)[:5]
     oh, ot, otid, ou, ov = intersect_closest_bruteforce(
         o, d, scene.tri_v0, scene.tri_v1, scene.tri_v2
@@ -93,7 +95,8 @@ def test_pallas_render_matches_brute(setup):
 
 
 def test_pallas_attrs_match_scene_gathers(setup, rng):
-    """In-kernel one-hot-matmul attribute fetch == gathering by tid."""
+    """The attribute rows gathered by tid after the kernel == gathering
+    the scene fields by tid."""
     scene, closest_fn, _ = setup
     o, d = _rays(scene, rng, 300)
     res = closest_fn(o, d)
@@ -114,12 +117,13 @@ def test_pallas_attrs_match_scene_gathers(setup, rng):
 
 
 def test_pallas_gradients_match_bruteforce():
-    """The custom-VJP Pallas path must reproduce brute-force gradients of a
+    """The custom-VJP kernel path must reproduce brute-force gradients of a
     pixel loss w.r.t. material color, emission, and vertex positions."""
     import dataclasses
 
     import jax
 
+    from chiaroscuro_tpu.accel.clusters import build_clusters
     from chiaroscuro_tpu.accel.dispatch import make_intersectors
     from chiaroscuro_tpu.render.renderer import render_samples
 
@@ -139,7 +143,11 @@ def test_pallas_gradients_match_bruteforce():
         def loss(params):
             s = dataclasses.replace(scene, **params)
             if method == "pallas":
-                cf, af = make_pallas_intersectors(s, interpret=True)
+                cf, af = make_cluster_intersectors(
+                    s, interpret=True, cull=False,
+                    clusters=build_clusters(
+                        np.asarray(scene.tri_v0), np.asarray(scene.tri_v1),
+                        np.asarray(scene.tri_v2), 16))
             else:
                 cf, af = make_intersectors(s, "brute")
             img = render_samples(

@@ -123,13 +123,14 @@ def test_seed_changes_image(setup):
 
 
 def test_sharded_render_with_pallas_intersectors(setup, cpu_devices):
-    """shard_map composed with the Pallas (interpret-mode) kernels — the
-    actual TPU production composition (VERDICT r1 weak #5).  The pallas
-    frame must be bitwise shard-invariant like the brute one."""
-    from chiaroscuro_tpu.ops.intersect_pallas import make_pallas_intersectors
+    """shard_map composed with the Pallas visit kernel as a dense sweep
+    (interpret mode) — the small-scene production composition on the GPU.
+    The frame must be bitwise shard-invariant like the brute one."""
+    from chiaroscuro_tpu.ops.cluster_pallas import make_cluster_intersectors
 
     scene, cfg, cam = setup
-    closest_fn, any_fn = make_pallas_intersectors(scene, interpret=True)
+    closest_fn, any_fn = make_cluster_intersectors(
+        scene, interpret=True, cull=False)
 
     args = (
         jnp.asarray(cam["eye"], jnp.float32),

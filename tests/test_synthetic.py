@@ -1,10 +1,8 @@
 """Synthetic sponza-scale atrium (scene/synthetic.py).
 
 CPU tier: generator determinism + budget accuracy, and exactness of the
-HBM-streaming intersector configuration — the exact
-kernel configuration the full-scale scene engages on TPU — on a small
-atrium in interpreter mode.  The full-scale (~480k tris) on-chip check
-lives in tests/test_tpu_compiled.py / tools/tpu_atrium_check.py.
+cluster intersector on a small atrium in interpreter mode.  The
+full-scale (~480k tris) on-card check is chip_smoke.py's kernel phase.
 """
 
 import jax.numpy as jnp
@@ -74,14 +72,13 @@ import pytest
 
 @pytest.mark.parametrize("Lmax", [512, None])
 def test_atrium_streaming_matches_oracle(rng, Lmax):
-    """The shipped streaming configuration (flat cull; explicit and
-    default candidate-list widths) pinned against the brute oracle (small
-    scene, interpreter mode).  The former supercluster (hier) variant was
-    deleted in r5 — flat + wide near-ordered lists beat it 2.3x at its own
-    K=23k design point (docs/ROOFLINE.md r5 deletion record)."""
+    """The shipped cluster configuration (explicit and default
+    candidate-list widths) pinned against the brute oracle (small scene,
+    interpreter mode)."""
     scene = build_scene_arrays(atrium(2_200, seed=5), device_put=False)
     cf, af = make_cluster_intersectors(
-        scene, M=32, interpret=True, stream=True, Lmax=Lmax,
+        scene, M=32, interpret=True,
+        **({} if Lmax is None else {"Lmax": Lmax}),
     )
     lo, hi = np.asarray(scene.world_min), np.asarray(scene.world_max)
     o = jnp.asarray(rng.uniform(lo, hi, (128, 3)), jnp.float32)
@@ -95,7 +92,7 @@ def test_atrium_streaming_matches_oracle(rng, Lmax):
     np.testing.assert_allclose(
         np.asarray(ch.t)[hit], np.asarray(ot)[hit], rtol=1e-5, atol=1e-5
     )
-    # any-hit through the same streaming path.
+    # any-hit through the same kernel.
     occ = af(o, d, jnp.where(ch.hit, ch.t * 1.5, 1e9),
              jnp.full((128,), -1, jnp.int32))
     np.testing.assert_array_equal(np.asarray(occ), hit)

@@ -15,8 +15,6 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-os.environ.setdefault("JAX_PLATFORMS", "cpu")
-
 GOLDEN_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
     "tests", "golden",
@@ -40,11 +38,15 @@ FIXTURES = {
 }
 
 
-def render_fixture(name, spec):
-    """Render one fixture deterministically on CPU; returns (H, W, 3) f32."""
+def render_fixture(name, spec, cpu=True):
+    """Render one fixture deterministically; returns (H, W, 3) f32.
+
+    ``cpu=True`` pins the CPU backend (the goldens are CPU renders);
+    ``cpu=False`` renders on whatever backend the process already uses."""
     import jax
 
-    jax.config.update("jax_platforms", "cpu")
+    if cpu:
+        jax.config.update("jax_platforms", "cpu")
     import numpy as np
 
     from chiaroscuro_tpu.render.renderer import render_image

@@ -58,14 +58,6 @@ EPS_OFFSET = np.float32(1.0e-3)  # rayTracer.cpp:104,130
 # lanes pack to the front of each segment between bounces.
 COMPACT_SEG_LANES = 4096
 
-# Move compaction/shadow-sort state with a (key, index)-sort + ONE stacked
-# (16, R) gather instead of a 17-operand variadic payload sort.  Bitwise-
-# identical output either way (both apply the same stable permutation);
-# the stacked gather moves contiguous (16, 1) columns and avoids the
-# variadic-sort lowering, which is slow to compile.  Tests flip it to
-# check both branches.
-_COMPACT_VIA_GATHER = True
-
 # Per-axis |direction|-share bits in the spatial bounce-sort key: 2 -> 4x4
 # angular bins inside each octant.  Ordering-only metadata — any value is
 # correct; it must stay below 7, where the 32-bit key would overflow.
@@ -224,8 +216,9 @@ def trace_paths_planar(
     stable-sorted to the front of their COMPACT_SEG_LANES-lane segment and
     dead lanes to its tail, so whole rows of dead rays become contiguous
     and cost trip=0 in the cluster cull.  All per-lane state (keys, throughput,
-    accumulated radiance, the lane -> original-pixel permutation) rides the
-    sort as payloads; radiance is sorted back to pixel order at the end.
+    accumulated radiance, the lane -> original-pixel permutation) moves
+    with the sort's permutation in one stacked gather; radiance is sorted
+    back to pixel order at the end.
     Every per-lane float op is unchanged, reductions are permutation-safe
     (exact-integer stats sums, order-free intersection argmins), so radiance
     is **bitwise identical** to ``compact=False`` — pinned by
@@ -351,42 +344,26 @@ def trace_paths_planar(
             | _morton_cell(o)                   # harmless for correctness
         )
         lane_id = jnp.arange(R_flat, dtype=jnp.int32)
-        if _COMPACT_VIA_GATHER:
-            _, sp = jax.lax.sort(
-                (key.reshape(-1), lane_id), num_keys=1, is_stable=True
-            )
-            _, inv = jax.lax.sort((sp, lane_id), num_keys=1, is_stable=True)
-            sm = jnp.stack([
-                o[0].reshape(-1), o[1].reshape(-1), o[2].reshape(-1),
-                d[0].reshape(-1), d[1].reshape(-1), d[2].reshape(-1),
-                tmax.reshape(-1),
-                excl.reshape(-1).view(jnp.float32),   # bit-ride, see bounce
-            ])[:, sp]                                 # one (8, 1) gather
+        _, sp = jax.lax.sort(
+            (key.reshape(-1), lane_id), num_keys=1, is_stable=True
+        )
+        _, inv = jax.lax.sort((sp, lane_id), num_keys=1, is_stable=True)
+        sm = jnp.stack([
+            o[0].reshape(-1), o[1].reshape(-1), o[2].reshape(-1),
+            d[0].reshape(-1), d[1].reshape(-1), d[2].reshape(-1),
+            tmax.reshape(-1),
+            excl.reshape(-1).view(jnp.float32),   # bit-ride, see bounce
+        ])[:, sp]                                 # one (8, 1) gather
 
-            def row(i):
-                return sm[i].reshape(B)
+        def row(i):
+            return sm[i].reshape(B)
 
-            occ_s = any_planar(
-                jnp.stack([row(0), row(1), row(2)]),
-                jnp.stack([row(3), row(4), row(5)]),
-                row(6), row(7).view(jnp.int32),
-            )
-            return occ_s.reshape(-1)[inv].reshape(B)
-        outs = jax.lax.sort(
-            (key.reshape(-1),
-             o[0].reshape(-1), o[1].reshape(-1), o[2].reshape(-1),
-             d[0].reshape(-1), d[1].reshape(-1), d[2].reshape(-1),
-             tmax.reshape(-1), excl.reshape(-1), lane_id),
-            num_keys=1, is_stable=True,
-        )[1:]
-        o_s = jnp.stack([x.reshape(B) for x in outs[0:3]])
-        d_s = jnp.stack([x.reshape(B) for x in outs[3:6]])
-        occ_s = any_planar(o_s, d_s, outs[6].reshape(B), outs[7].reshape(B))
-        occ = jax.lax.sort(
-            (outs[8], occ_s.reshape(-1).astype(jnp.int32)), num_keys=1,
-            is_stable=True,
-        )[1]
-        return occ.reshape(B).astype(bool)
+        occ_s = any_planar(
+            jnp.stack([row(0), row(1), row(2)]),
+            jnp.stack([row(3), row(4), row(5)]),
+            row(6), row(7).view(jnp.int32),
+        )
+        return occ_s.reshape(-1)[inv].reshape(B)
 
     n_lights = scene.n_lights
     bg = background[:, None, None]  # (3, 1, 1)
@@ -419,78 +396,55 @@ def trace_paths_planar(
         origin, direction, throughput, radiance, active, ck0, ck1, perm = state
 
         if compact:
-            # Stable-sort live lanes to the front of each segment; all
-            # per-lane state rides the sort as payloads (see docstring for
-            # why this must be one lax.sort, not gathers).
+            # Stable-sort live lanes to the front of each segment.
             if spatial_sort:
                 key = _spatial_key(origin, direction, active)
                 key = key.reshape(n_seg, seg)
             else:
                 key = (~active).reshape(n_seg, seg).astype(jnp.int32)
 
-            def s2(x):
-                return x.reshape(n_seg, seg)
+            # Sort only (key, source-index); move the 16 state arrays
+            # with ONE stacked gather.  Each element moves once instead
+            # of riding every compare-exchange pass of a 17-operand
+            # variadic sort, and stacking makes the gather move
+            # contiguous (16, 1) columns instead of 16 scattered reads.
+            iota = jnp.broadcast_to(
+                jnp.arange(seg, dtype=jnp.int32)[None], (n_seg, seg)
+            )
+            _, sp = jax.lax.sort((key, iota), num_keys=1, is_stable=True)
+            spg = (
+                sp + jnp.arange(n_seg, dtype=jnp.int32)[:, None] * seg
+            ).reshape(-1)
+            def fview(x):
+                # bit-preserving ride-along for 32-bit int payloads:
+                # the gather only moves bytes, never does arithmetic
+                return x.reshape(-1).view(jnp.float32)
 
-            if _COMPACT_VIA_GATHER:
-                # Sort only (key, source-index); move the 16 state arrays
-                # with ONE stacked gather.  Each element moves once instead
-                # of riding every compare-exchange pass of a 17-operand
-                # variadic sort, and stacking makes the gather move
-                # contiguous (16, 1) columns instead of 16 scattered reads.
-                iota = jnp.broadcast_to(
-                    jnp.arange(seg, dtype=jnp.int32)[None], (n_seg, seg)
-                )
-                _, sp = jax.lax.sort((key, iota), num_keys=1, is_stable=True)
-                spg = (
-                    sp + jnp.arange(n_seg, dtype=jnp.int32)[:, None] * seg
-                ).reshape(-1)
-                def fview(x):
-                    # bit-preserving ride-along for 32-bit int payloads:
-                    # the gather only moves bytes, never does arithmetic
-                    return x.reshape(-1).view(jnp.float32)
+            sm = jnp.stack([
+                origin[0].reshape(-1), origin[1].reshape(-1),
+                origin[2].reshape(-1),
+                direction[0].reshape(-1), direction[1].reshape(-1),
+                direction[2].reshape(-1),
+                throughput[0].reshape(-1), throughput[1].reshape(-1),
+                throughput[2].reshape(-1),
+                radiance[0].reshape(-1), radiance[1].reshape(-1),
+                radiance[2].reshape(-1),
+                active.astype(jnp.float32).reshape(-1),   # exact 0/1
+                fview(ck0), fview(ck1), fview(perm),
+            ])                                       # (16, R_flat)
+            sm = sm[:, spg]
 
-                sm = jnp.stack([
-                    origin[0].reshape(-1), origin[1].reshape(-1),
-                    origin[2].reshape(-1),
-                    direction[0].reshape(-1), direction[1].reshape(-1),
-                    direction[2].reshape(-1),
-                    throughput[0].reshape(-1), throughput[1].reshape(-1),
-                    throughput[2].reshape(-1),
-                    radiance[0].reshape(-1), radiance[1].reshape(-1),
-                    radiance[2].reshape(-1),
-                    active.astype(jnp.float32).reshape(-1),   # exact 0/1
-                    fview(ck0), fview(ck1), fview(perm),
-                ])                                       # (16, R_flat)
-                sm = sm[:, spg]
+            def row(i):
+                return sm[i].reshape(B)
 
-                def row(i):
-                    return sm[i].reshape(B)
-
-                origin = jnp.stack([row(0), row(1), row(2)])
-                direction = jnp.stack([row(3), row(4), row(5)])
-                throughput = jnp.stack([row(6), row(7), row(8)])
-                radiance = jnp.stack([row(9), row(10), row(11)])
-                active = row(12) > 0.5
-                ck0 = row(13).view(ck0.dtype)
-                ck1 = row(14).view(ck1.dtype)
-                perm = row(15).view(jnp.int32)
-            else:
-                payl = (
-                    s2(origin[0]), s2(origin[1]), s2(origin[2]),
-                    s2(direction[0]), s2(direction[1]), s2(direction[2]),
-                    s2(throughput[0]), s2(throughput[1]), s2(throughput[2]),
-                    s2(radiance[0]), s2(radiance[1]), s2(radiance[2]),
-                    s2(active), s2(ck0), s2(ck1), s2(perm),
-                )
-                outs = jax.lax.sort(
-                    (key,) + payl, num_keys=1, is_stable=True
-                )[1:]
-                outs = [o.reshape(B) for o in outs]
-                origin = jnp.stack(outs[0:3])
-                direction = jnp.stack(outs[3:6])
-                throughput = jnp.stack(outs[6:9])
-                radiance = jnp.stack(outs[9:12])
-                active, ck0, ck1, perm = outs[12:16]
+            origin = jnp.stack([row(0), row(1), row(2)])
+            direction = jnp.stack([row(3), row(4), row(5)])
+            throughput = jnp.stack([row(6), row(7), row(8)])
+            radiance = jnp.stack([row(9), row(10), row(11)])
+            active = row(12) > 0.5
+            ck0 = row(13).view(ck0.dtype)
+            ck1 = row(14).view(ck1.dtype)
+            perm = row(15).view(jnp.int32)
 
         # Closest-hit + hit resolution (rayTracer.cpp:148-166).  Planar-native
         # intersectors return everything already in (.., B0, 128) layout

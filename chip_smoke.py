@@ -16,7 +16,8 @@ Phases on one card, in order:
 4. large scene: ``Renderer`` with ``auto`` on the 480k atrium, 1280x720,
    1 spp, depth 3;
 5. goldens: two ``tools/make_goldens.py`` fixtures rendered on the card
-   against the committed CPU renders;
+   against the committed CPU renders, and the cornell scene at its own
+   camera against a CPU render in this process (see GOLDEN_BOUNDS);
 6. inverse rendering: three Adam steps on cornell ``kd``/``ke``;
 7. GPU tests: ``pytest -m gpu``.
 
@@ -57,21 +58,37 @@ ORACLE_RAYS = 65536
 CORNELL_RES = 768
 CORNELL_SPP = 64
 
-# GPU render vs the CPU goldens, per pixel in the band of
-# tests/test_self_golden.py.  The two backends round Moller-Trumbore,
-# normalisation and sampling differently in the last bits, so a path whose
-# hit, shadow or Russian-roulette decision is a near-tie goes another way;
-# from there on the pixel holds another sample of the same estimator.  The
-# cornell_64 fixture is full of such near-ties: its default camera sits on
-# the line where two walls meet (x = 0, y = 0), so rays graze both planes.
-# A one-card chip run measured 11% of pixels diverging at 1 spp and depth 1
-# and 38% inside the band at the fixture's 8 spp, depth 3.  What must hold
-# is that both renders estimate the same image: the image means agree and
-# the mean per-pixel error stays at the noise level of 8 samples.
+# GPU renders vs CPU renders, per pixel in the band of
+# tests/test_self_golden.py, with a bound for each comparison.  Each
+# bound is (min share of pixels in the band, max mean relative error,
+# max relative shift of the image mean).  The two backends round
+# Moller-Trumbore, normalisation and sampling differently in the last
+# bits, so a path whose hit, shadow or Russian-roulette decision is a
+# near-tie may go another way; on a view without systematic ties that
+# touches few pixels.  Readings behind each bound: PERF.md, Findings.
 GOLDEN_RTOL, GOLDEN_ATOL = 2e-3, 1e-4
-GOLDEN_MIN_IN_BAND = 0.3
-GOLDEN_MAX_MEAN_REL = 0.3
-GOLDEN_MAX_MEAN_SHIFT = 0.1
+# The golden is stored in half precision, which alone gives a mean
+# relative error of about 1.8e-4.
+GOLDEN_BOUNDS = {
+    # the CPU render in this process against the committed golden: the
+    # comparison itself must reproduce the golden.
+    "cpu_vs_golden": (1.0, 5e-4, 5e-5),
+    "atrium_160x90/bvh": (0.999, 5e-4, 2e-4),
+    "atrium_160x90/auto": (0.999, 1e-3, 5e-4),
+    "cornell_view/brute": (0.999, 1e-5, 1e-5),
+    "cornell_view/auto": (0.999, 1e-5, 1e-5),
+}
+# The cornell_64 fixture has no bound on the GPU.  Its eye (0, 0, 2) lies
+# on the floor (y = 0) and on the green wall (x = 0), so every primary
+# ray hits at t = 0 (asserted below), and which coplanar triangle wins
+# hangs on the sign of a barycentric coordinate that is zero in exact
+# arithmetic.  The hit point rebuilt from barycentrics then lands off the
+# other plane by a rounding error, on either side, so later bounces hang
+# on rounding too.  Each compiler breaks these ties its own way: on the
+# card the image means of the brute-force and the kernel renders lie 5%
+# and 84% away from the CPU's (PERF.md).  The cornell scene is held to
+# the band at CORNELL_CAMERA (cornell_view): the same settings, no ties.
+CORNELL_VIEW = "cornell_view"
 
 # Sharded gradient vs one-card gradient: per-pixel contributions are summed
 # in another order (per-device partial sums, then psum; gather transposes
@@ -316,31 +333,134 @@ def _auto(scene):
     return resolve_auto(scene.n_tris, jax.default_backend())
 
 
-def phase_goldens():
+def _image_stats(img, ref):
     import numpy as np
 
+    diff = np.abs(img - ref)
+    return dict(
+        in_band=float(np.mean(np.all(
+            diff <= GOLDEN_ATOL + GOLDEN_RTOL * np.abs(ref), axis=-1))),
+        mean_rel=float(diff.mean() / np.abs(ref).mean()),
+        mean_shift=float(abs(img.mean() - ref.mean()) / ref.mean()))
+
+
+def _check_image(key, img, ref, **fields):
+    import numpy as np
+
+    assert img.shape == ref.shape and np.isfinite(img).all(), key
+    st = _image_stats(img, ref)
+    bound = GOLDEN_BOUNDS.get(key)
+    say("goldens", compare=key, **fields, **st,
+        rgb_means=dict(image=img.mean(axis=(0, 1)).tolist(),
+                       reference=ref.mean(axis=(0, 1)).tolist()),
+        band=dict(rtol=GOLDEN_RTOL, atol=GOLDEN_ATOL),
+        bound=None if bound is None else dict(
+            min_in_band=bound[0], max_mean_rel=bound[1],
+            max_mean_shift=bound[2]))
+    if bound is not None:
+        assert st["in_band"] >= bound[0], (key, st)
+        assert st["mean_rel"] <= bound[1], (key, st)
+        assert st["mean_shift"] <= bound[2], (key, st)
+    return st
+
+
+def _fixture_view(spec):
+    from chiaroscuro_tpu.scene.config import RenderConfig
+
+    cfg = RenderConfig.from_tokens(["input", spec["scene"]])
+    cam = dict(eye=cfg.vp, center=cfg.la, up=cfg.up, yview=cfg.yview)
+    cam.update(spec.get("camera") or {})
+    return cfg, cam
+
+
+def _ray_ties(cfg, rays, gpu, cpu):
+    """Closest hits of ``rays()`` ((R, 3) origins, dirs) through brute
+    force on the CPU and through brute force and ``auto`` on the GPU: how
+    many hit at t == 0, and which triangles win."""
+    import jax
+    import numpy as np
+
+    from chiaroscuro_tpu.accel import make_intersectors
+    from chiaroscuro_tpu.scene.scene_arrays import load_scene
+
+    out = {}
+    for label, dev, method in (("cpu brute", cpu, "brute"),
+                               ("gpu brute", gpu, "brute"),
+                               ("gpu auto", gpu, "auto")):
+        with jax.default_device(dev):
+            scene = load_scene(cfg)
+            cf, _ = make_intersectors(scene, method)
+            hit, t, tid = jax.jit(lambda o, d: tuple(cf(o, d))[:3])(*rays())
+        hit, t, tid = (np.asarray(x) for x in (hit, t, tid))
+        tid = np.where(hit, tid, -1)
+        out[label] = dict(hits=int(hit.sum()),
+                          hits_at_t0=int(np.sum(hit & (t == 0))),
+                          same_triangle_as_cpu=int(np.sum(
+                              tid == out.get("cpu brute", {}).get("tid",
+                                                                  tid))),
+                          triangles=_counts(tid), tid=tid)
+    for v in out.values():
+        del v["tid"]
+    return dict(rays=int(tid.size), **out)
+
+
+def _primary_ties(spec, gpu, cpu):
+    """Pixel-centre primary rays of a fixture's view."""
+    cfg, cam = _fixture_view(spec)
+
+    def rays():
+        o3, d3 = primary_rays(cam, spec["xres"], spec["yres"])
+        return o3.reshape(3, -1).T, d3.reshape(3, -1).T
+
+    return _ray_ties(cfg, rays, gpu, cpu)
+
+
+def _counts(tid):
+    import numpy as np
+
+    ids, n = np.unique(tid, return_counts=True)
+    return {str(int(i)): int(k) for i, k in zip(ids, n)}
+
+
+def phase_goldens():
+    import jax
+
     from chiaroscuro_tpu.render.image_io import read_exr
+    from chiaroscuro_tpu.scene.builtin import CORNELL_CAMERA
     from tools.make_goldens import FIXTURES, GOLDEN_DIR, render_fixture
 
+    gpu, cpu = jax.devices()[0], jax.devices("cpu")[0]
+
+    def render(spec, dev, intersector):
+        with jax.default_device(dev):
+            return render_fixture("", dict(spec, intersector=intersector),
+                                  cpu=False)
+
     for name in ("cornell_64", "atrium_160x90"):
+        spec = FIXTURES[name]
         golden = read_exr(os.path.join(GOLDEN_DIR, f"{name}.exr"))
-        img = render_fixture(name, FIXTURES[name], cpu=False)
-        assert img.shape == golden.shape and np.isfinite(img).all()
-        diff = np.abs(img - golden)
-        in_band = float(np.mean(np.all(
-            diff <= GOLDEN_ATOL + GOLDEN_RTOL * np.abs(golden), axis=-1)))
-        mean_rel = float(diff.mean() / np.abs(golden).mean())
-        shift = float(abs(img.mean() - golden.mean()) / golden.mean())
-        say("goldens", fixture=name, intersector=FIXTURES[name]["intersector"],
-            in_band_fraction=in_band, mean_relative_error=mean_rel,
-            image_mean_shift=shift,
-            band=dict(rtol=GOLDEN_RTOL, atol=GOLDEN_ATOL),
-            bound=dict(min_in_band=GOLDEN_MIN_IN_BAND,
-                       max_mean_rel=GOLDEN_MAX_MEAN_REL,
-                       max_mean_shift=GOLDEN_MAX_MEAN_SHIFT))
-        assert in_band >= GOLDEN_MIN_IN_BAND, (name, in_band)
-        assert mean_rel <= GOLDEN_MAX_MEAN_REL, (name, mean_rel)
-        assert shift <= GOLDEN_MAX_MEAN_SHIFT, (name, shift)
+        own = spec["intersector"]
+        _check_image("cpu_vs_golden", render(spec, cpu, own), golden,
+                     fixture=name, intersector=own, device="cpu")
+        for method in (own, "auto"):
+            _check_image(f"{name}/{method}", render(spec, gpu, method),
+                         golden, fixture=name, intersector=method,
+                         device="gpu")
+
+    spec = FIXTURES["cornell_64"]
+    ties = _primary_ties(spec, gpu, cpu)
+    say("goldens", fixture="cornell_64", primary_rays=ties)
+    # The witness behind leaving cornell_64 unbounded on the GPU: every
+    # primary ray of its view starts on a surface.
+    assert ties["cpu brute"]["hits_at_t0"] == ties["rays"], ties
+    view = dict(spec, camera=CORNELL_CAMERA)
+    say("goldens", fixture=CORNELL_VIEW, primary_rays=_primary_ties(
+        view, gpu, cpu))
+    ref = render(view, cpu, "brute")
+    for method in ("brute", "auto"):
+        _check_image(f"{CORNELL_VIEW}/{method}", render(view, gpu, method),
+                     ref, fixture=CORNELL_VIEW, intersector=method,
+                     device="gpu", reference="cpu brute")
 
 
 def phase_inverse():

@@ -336,10 +336,9 @@ def test_spatial_sort_bitwise_identity_cluster():
     ``COMPACT_MIN_K`` gates ``prefers_ray_sort`` off for every CI-sized
     scene, so this new r4 code otherwise has zero CI coverage (advisor r4
     medium finding); lower the gate so the multi-light atrium engages the
-    full sort pipeline, and run both ``_COMPACT_VIA_GATHER`` branches (the
-    int payloads bit-ride the gather as f32 — advisor r4 low finding)."""
+    full sort pipeline (the int state bit-rides the stacked gather as
+    f32)."""
     import chiaroscuro_tpu.ops.cluster_pallas as cp
-    import chiaroscuro_tpu.render.integrator as integrator
     from chiaroscuro_tpu.scene.synthetic import ATRIUM_CAMERA, atrium
 
     scene = build_scene_arrays(atrium(2_200, seed=5))
@@ -367,7 +366,6 @@ def test_spatial_sort_bitwise_identity_cluster():
     assert np.isfinite(baseline).all() and baseline.mean() > 1e-4
 
     orig_min_k = cp.COMPACT_MIN_K
-    orig_gather = integrator._COMPACT_VIA_GATHER
     try:
         # Gate the sorts ON for this tiny scene: render_samples re-binds the
         # intersectors per trace, and _finalize re-reads COMPACT_MIN_K, so
@@ -375,22 +373,19 @@ def test_spatial_sort_bitwise_identity_cluster():
         cp.COMPACT_MIN_K = 1
         cfc, afc = cp.make_cluster_intersectors(scene, interpret=True)
         assert cfc.prefers_compaction and cfc.prefers_ray_sort
-        for gather in (True, False):
-            integrator._COMPACT_VIA_GATHER = gather
-            sorted_out = np.asarray(
-                render_samples(
-                    scene,
-                    np.asarray(cam["eye"], np.float32),
-                    np.asarray(cam["center"], np.float32),
-                    np.asarray(cam["up"], np.float32), float(cam["yview"]),
-                    xres, yres, px, py, np.int32(0), 2, np.uint32(7), 3,
-                    np.zeros(3, np.float32), cfc, afc, compact=True,
-                )
+        sorted_out = np.asarray(
+            render_samples(
+                scene,
+                np.asarray(cam["eye"], np.float32),
+                np.asarray(cam["center"], np.float32),
+                np.asarray(cam["up"], np.float32), float(cam["yview"]),
+                xres, yres, px, py, np.int32(0), 2, np.uint32(7), 3,
+                np.zeros(3, np.float32), cfc, afc, compact=True,
             )
-            np.testing.assert_array_equal(baseline, sorted_out), gather
+        )
+        np.testing.assert_array_equal(baseline, sorted_out)
     finally:
         cp.COMPACT_MIN_K = orig_min_k
-        integrator._COMPACT_VIA_GATHER = orig_gather
 
 
 def test_nee_light_gather_matches_onehot_product(cornell_scene):

@@ -42,7 +42,10 @@ def render_fixture(name, spec, cpu=True):
     """Render one fixture deterministically; returns (H, W, 3) f32.
 
     ``cpu=True`` pins the CPU backend (the goldens are CPU renders);
-    ``cpu=False`` renders on whatever backend the process already uses."""
+    ``cpu=False`` renders on the process's default device (pick another
+    with ``jax.default_device``).  ``spec["camera"]`` (eye, center, up,
+    yview) overrides the scene's camera; synthetic scenes default to
+    ``ATRIUM_CAMERA``."""
     import jax
 
     if cpu:
@@ -65,11 +68,12 @@ def render_fixture(name, spec, cpu=True):
         cfg.obj_path = os.path.join(REFERENCE_DIR, cfg.obj_path)
     else:
         cfg = RenderConfig.from_tokens(["input", spec["scene"]] + overrides)
-        if spec["scene"].startswith("synthetic:"):
-            for k, v in ATRIUM_CAMERA.items():
-                setattr(cfg, {"eye": "vp", "center": "la",
-                              "up": "up", "yview": "yview"}[k],
-                        v if k != "yview" else float(v))
+    cam = spec.get("camera")
+    if cam is None and spec.get("scene", "").startswith("synthetic:"):
+        cam = ATRIUM_CAMERA
+    for k, v in (cam or {}).items():
+        setattr(cfg, {"eye": "vp", "center": "la", "up": "up",
+                      "yview": "yview"}[k], v if k != "yview" else float(v))
     scene = load_scene(cfg)
     return np.asarray(render_image(scene, cfg), np.float32)
 

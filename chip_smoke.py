@@ -60,21 +60,29 @@ CORNELL_SPP = 64
 
 # GPU renders vs CPU renders, per pixel in the band of
 # tests/test_self_golden.py, with a bound for each comparison.  Each
-# bound is (min share of pixels in the band, max mean relative error,
-# max relative shift of the image mean).  The two backends round
-# Moller-Trumbore, normalisation and sampling differently in the last
-# bits, so a path whose hit, shadow or Russian-roulette decision is a
-# near-tie may go another way; on a view without systematic ties that
-# touches few pixels.  Readings behind each bound: PERF.md, Findings.
+# bound is (min share of pixels in the band, max mean relative error over
+# the pixels in the band, max relative shift of their mean).  The two
+# backends round Moller-Trumbore, normalisation and sampling differently
+# in the last bits, so a path whose hit, shadow or Russian-roulette
+# decision is a near-tie may go another way: that pixel then leaves the
+# band by a whole path's radiance (up to 1.1 on atrium_160x90, where one
+# such pixel moves the whole image's mean by 1.7e-4).  On a view without
+# systematic ties that touches a few pixels, and which ones changes with
+# the compiled program, so the share bound counts them and the error and
+# shift bounds hold every other pixel as tightly as the CPU reproduces
+# the golden.  The whole image's error and shift are printed, not bound.
+# Readings behind each bound: PERF.md, Findings.
 GOLDEN_RTOL, GOLDEN_ATOL = 2e-3, 1e-4
 # The golden is stored in half precision, which alone gives a mean
-# relative error of about 1.8e-4.
+# relative error of about 1.8e-4 and an image-mean shift of up to 5e-6.
 GOLDEN_BOUNDS = {
     # the CPU render in this process against the committed golden: the
     # comparison itself must reproduce the golden.
-    "cpu_vs_golden": (1.0, 5e-4, 5e-5),
-    "atrium_160x90/bvh": (0.999, 5e-4, 2e-4),
-    "atrium_160x90/auto": (0.999, 1e-3, 5e-4),
+    "cpu_vs_golden": (1.0, 2.5e-4, 1e-5),
+    # 3 or 4 of 14,400 pixels leave the band; 0.999 allows 14.
+    "atrium_160x90/bvh": (0.999, 2.5e-4, 1e-5),
+    "atrium_160x90/auto": (0.999, 2.5e-4, 1e-5),
+    # against a float32 CPU render: no half-precision floor.
     "cornell_view/brute": (0.999, 1e-5, 1e-5),
     "cornell_view/auto": (0.999, 1e-5, 1e-5),
 }
@@ -333,15 +341,30 @@ def _auto(scene):
     return resolve_auto(scene.n_tris, jax.default_backend())
 
 
+def _mean_error(img, ref):
+    """(mean relative error, relative shift of the mean) of img vs ref."""
+    import numpy as np
+
+    return (float(np.abs(img - ref).mean() / np.abs(ref).mean()),
+            float(abs(img.mean() - ref.mean()) / ref.mean()))
+
+
 def _image_stats(img, ref):
     import numpy as np
 
     diff = np.abs(img - ref)
+    band = np.all(diff <= GOLDEN_ATOL + GOLDEN_RTOL * np.abs(ref), axis=-1)
+    rel, shift = _mean_error(img, ref)
+    band_rel, band_shift = (_mean_error(img[band], ref[band]) if band.any()
+                            else (None, None))
+    out = np.argwhere(~band)
     return dict(
-        in_band=float(np.mean(np.all(
-            diff <= GOLDEN_ATOL + GOLDEN_RTOL * np.abs(ref), axis=-1))),
-        mean_rel=float(diff.mean() / np.abs(ref).mean()),
-        mean_shift=float(abs(img.mean() - ref.mean()) / ref.mean()))
+        in_band=float(band.mean()), band_mean_rel=band_rel,
+        band_mean_shift=band_shift, image_mean_rel=rel,
+        image_mean_shift=shift,
+        # (row, col, largest channel difference) of the first pixels out
+        out_of_band=[[int(y), int(x), float(diff[y, x].max())]
+                     for y, x in out[:16]])
 
 
 def _check_image(key, img, ref, **fields):
@@ -355,12 +378,12 @@ def _check_image(key, img, ref, **fields):
                        reference=ref.mean(axis=(0, 1)).tolist()),
         band=dict(rtol=GOLDEN_RTOL, atol=GOLDEN_ATOL),
         bound=None if bound is None else dict(
-            min_in_band=bound[0], max_mean_rel=bound[1],
-            max_mean_shift=bound[2]))
+            min_in_band=bound[0], max_band_mean_rel=bound[1],
+            max_band_mean_shift=bound[2]))
     if bound is not None:
         assert st["in_band"] >= bound[0], (key, st)
-        assert st["mean_rel"] <= bound[1], (key, st)
-        assert st["mean_shift"] <= bound[2], (key, st)
+        assert st["band_mean_rel"] <= bound[1], (key, st)
+        assert st["band_mean_shift"] <= bound[2], (key, st)
     return st
 
 
